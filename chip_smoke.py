@@ -1,0 +1,264 @@
+"""Drive the PyTorch port's TeacherGNN training path on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero; nothing is caught):
+1. environment: the card's name and power limit, torch/CUDA/nvcc versions,
+   and the build of the CUDA kernels (``gnn_tail_generalization_tpu_torch/
+   csrc/spmm_csr.cu``, built into ``gnn_tail_generalization_tpu_torch/_build/``);
+2. each kernel against its plain PyTorch version on the card: the bench-shape
+   power-law graph (169,343 nodes, 2,501,571 edges after the loader
+   pipeline), forward and transposed CSR, d=256 and d=40, the slice's own
+   graphs at d=256, and a hub-row case; max |kernel - plain| / max |plain|
+   must be <= 1e-5 (identical operands, only the summation order differs),
+   with kernel and plain times (median of CUDA-event timed runs);
+3. the slice: the port's ``main`` on ogbn-arxiv's shape (synthetic stand-in,
+   169,343 nodes, 128 features, hidden 256, 40 classes), 3 epochs, once with
+   ``--spmm_method=auto`` (f32 kernel) and once with ``pallas_bf16`` (bf16
+   kernel). Each run's records must be finite, its kernel's launch count must
+   grow and the plain version's must not. One step at dropout 0 from fixed
+   weights through the f32 kernel must match the same step through the plain
+   version within 1e-5 relative, in loss and every gradient.
+
+Prints the kernels' JSON line, then as the last line
+``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+"""
+import copy
+import dataclasses
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+REL_TOL = 1e-5
+SOURCE = "gnn_tail_generalization_tpu_torch/csrc/spmm_csr.cu"
+KERNELS = {  # wrapper -> the Pallas kernel it replaces
+    "spmm_csr_f32": "gnn_tail_generalization_tpu/ops/spmm_pallas.py:305",
+    "spmm_csr_bf16": "gnn_tail_generalization_tpu/ops/spmm_pallas.py:389",
+}
+SLICE_ARGS = ["--dataset=ogbn-arxiv", "--train_which=TeacherGNN", "--epochs=3",
+              "--device=cuda", "--log_every=1"]
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
+
+
+def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    for _ in range(warmup):
+        fn()
+    events = []
+    for _ in range(reps):
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        fn()
+        e.record()
+        events.append((s, e))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def compare(name, fn, g, x, plain_bf16, card_name, tag):
+    """Kernel ``fn`` vs the plain version on ``g``'s CSR: (abs err, rel err,
+    kernel ms, plain ms). Fails when rel err > REL_TOL."""
+    from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
+
+    args = (g.indptr, g.indices, g.weight, x)
+    y = fn(*args)
+    torch.cuda.synchronize()
+    y_ref = K.spmm_csr_plain(*args, bf16=plain_bf16)
+    assert y.shape == y_ref.shape and y.dtype == torch.float32, (y.shape, y.dtype)
+    abs_err = (y - y_ref).abs().max().item()
+    rel_err = abs_err / max(y_ref.abs().max().item(), 1e-30)
+    ms = median_ms(lambda: fn(*args))
+    plain_ms = median_ms(lambda: K.spmm_csr_plain(*args, bf16=plain_bf16))
+    log(f"  {name:14s} {tag:28s} d={x.shape[1]:3d} max_abs_err={abs_err:.3e} "
+        f"rel_err={rel_err:.3e} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"[{card_name}]")
+    assert rel_err <= REL_TOL, f"{name} {tag}: rel err {rel_err} > {REL_TOL}"
+    return abs_err, rel_err, ms, plain_ms
+
+
+def hub_graph():
+    """The hub-row stress case of tests/test_spmm_pallas.py: node 7 takes
+    500 in-edges, plus 100 random edges, over 40 nodes."""
+    from gnn_tail_generalization_tpu_torch.graph.core import build_graph
+
+    rng = np.random.default_rng(0)
+    n = 40
+    src = rng.integers(0, n, 500)
+    e = np.stack([np.concatenate([src, rng.integers(0, n, 100)]),
+                  np.concatenate([np.full(500, 7), rng.integers(0, n, 100)])])
+    return build_graph(e, n, with_dense=False)
+
+
+def slice_data():
+    """The slice's config and prepared data, as main builds them."""
+    from gnn_tail_generalization_tpu_torch.config import (
+        apply_arch_configs, build_config)
+    from gnn_tail_generalization_tpu_torch.data.datasets import (
+        load_dataset, prepare)
+
+    cfg = build_config(dataset="ogbn-arxiv", train_which="TeacherGNN")
+    data = load_dataset(cfg, "data")
+    cfg = apply_arch_configs(dataclasses.replace(
+        cfg, N_nodes=data.x.shape[0], num_feats=data.x.shape[1],
+        num_classes=int(data.y.max()) + 1))
+    return cfg, prepare(data, cfg)
+
+
+def step_grads(model, cfg, g, g_last, x, y, mask):
+    """Loss and gradients of one train-mode step (no optimizer update)."""
+    from gnn_tail_generalization_tpu_torch.train.loops import _nll_masked
+
+    model.train()
+    model.zero_grad(set_to_none=True)
+    _, classi, se_reg, _ = model(g, x, g_last=g_last)
+    loss = _nll_masked(classi, y, mask)
+    if se_reg is not None:
+        loss = loss + cfg.se_reg * se_reg
+    loss.backward()
+    return loss.item(), {k: p.grad.detach().clone()
+                         for k, p in model.named_parameters()}
+
+
+def check_step_parity(cfg, pd):
+    """One step at dropout 0 from fixed weights: f32 kernel vs the plain
+    version (spmm method 'gather' calls it directly)."""
+    from gnn_tail_generalization_tpu_torch.models.teacher import TeacherGNN
+    from gnn_tail_generalization_tpu_torch.train.loops import final_agg_view
+
+    dev = torch.device("cuda")
+    g = pd.graph.to(dev)
+    g_last = final_agg_view(cfg, pd)
+    g_last = g_last.to(dev) if g_last is not None else None
+    x = torch.as_tensor(pd.x, device=dev)
+    y = torch.as_tensor(pd.y, device=dev)
+    mask = torch.as_tensor(pd.train_mask, device=dev)
+    cfg_k = dataclasses.replace(cfg, dropout=0.0, spmm_method="pallas")
+    kernel_model = TeacherGNN(cfg_k, generator=torch.Generator().manual_seed(0))
+    plain_model = copy.deepcopy(kernel_model)
+    for m in plain_model.modules():  # same weights, SpMM via the plain version
+        if hasattr(m, "spmm_method"):
+            m.spmm_method = "gather"
+    loss_k, grads_k = step_grads(kernel_model.to(dev), cfg_k, g, g_last, x, y, mask)
+    loss_p, grads_p = step_grads(plain_model.to(dev), cfg_k, g, g_last, x, y, mask)
+    worst = abs(loss_k - loss_p) / abs(loss_p)
+    log(f"  loss kernel={loss_k:.8f} plain={loss_p:.8f} rel={worst:.3e}")
+    assert worst <= REL_TOL, f"step loss rel diff {worst} > {REL_TOL}"
+    for k in grads_p:
+        gk, gp = grads_k[k], grads_p[k]
+        rel = (gk - gp).abs().max().item() / max(gp.abs().max().item(), 1e-30)
+        log(f"  grad {k:32s} {tuple(gp.shape)} rel={rel:.3e}")
+        assert torch.isfinite(gk).all() and rel <= REL_TOL, (k, rel)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
+        return 2
+    from gnn_tail_generalization_tpu_torch import main as port_main
+    from gnn_tail_generalization_tpu_torch.data.synthetic import fast_powerlaw_graph
+    from gnn_tail_generalization_tpu_torch.graph.core import (
+        build_graph, standard_pipeline)
+    from gnn_tail_generalization_tpu_torch.ops import _build
+    from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
+    from gnn_tail_generalization_tpu_torch.train.loops import final_agg_view
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card_name = card()
+    dev = torch.device("cuda")
+
+    log("== phase 1: environment")
+    log(f"card: {card_name}")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"python {sys.version.split()[0]}")
+    nvcc = subprocess.run([_build._nvcc(), "--version"], check=True,
+                          capture_output=True, text=True).stdout.strip()
+    log(f"nvcc: {nvcc.splitlines()[-1]}")
+    t0 = time.perf_counter()
+    log(f"kernels built into {_build.load()._name}")
+    log(f"build_s={time.perf_counter() - t0:.2f}")
+
+    log("== phase 2: kernels vs plain versions on the card")
+    t0 = time.perf_counter()
+    n = 169343
+    gb = build_graph(standard_pipeline(fast_powerlaw_graph(n, 1_166_243, 0), n),
+                     n, with_dense=False)
+    max_in = int((gb.indptr[1:] - gb.indptr[:-1]).max())
+    log(f"bench-shape graph: n_node={gb.n_node} n_edge={gb.n_edge} "
+        f"max_in_degree={max_in} (host build {time.perf_counter() - t0:.1f} s)")
+    cfg, pd = slice_data()
+    g_last = final_agg_view(cfg, pd)
+    log(f"slice graph: n_node={pd.graph.n_node} n_edge={pd.graph.n_edge}; "
+        f"loss-masked view n_edge={g_last.n_edge}")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    graphs = [("bench fwd", gb.to(dev), (256, 40)),
+              ("bench transposed", gb.transpose().to(dev), (256, 40)),
+              ("slice fwd", pd.graph.to(dev), (256,)),
+              ("slice transposed", pd.graph.transpose().to(dev), (256,)),
+              ("slice loss-masked fwd", g_last.to(dev), (256,)),
+              ("slice loss-masked transp.", g_last.transpose().to(dev), (256,)),
+              ("hub rows", hub_graph().to(dev), (16,))]
+    stats = {k: {"max_abs_err": 0.0, "max_rel_err": 0.0} for k in KERNELS}
+    for tag, g, widths in graphs:
+        for d in widths:
+            x = torch.randn(g.n_node, d, generator=gen, device=dev)
+            for name, fn, bf16 in (("spmm_csr_f32", K.spmm_csr_f32, False),
+                                   ("spmm_csr_bf16", K.spmm_csr_bf16, True)):
+                a, r, ms, pms = compare(name, fn, g, x, bf16, card_name, tag)
+                st = stats[name]
+                st["max_abs_err"] = max(st["max_abs_err"], a)
+                st["max_rel_err"] = max(st["max_rel_err"], r)
+                if tag == "bench fwd" and d == 256:
+                    st["ms"], st["plain_ms"] = ms, pms
+    del graphs, gb
+    torch.cuda.empty_cache()
+
+    log("== phase 3: the slice through the port's main")
+    launches, step_ms = {}, {}
+    for method, kernel in (("auto", "spmm_csr_f32"),
+                           ("pallas_bf16", "spmm_csr_bf16")):
+        K.reset_launch_counts()
+        results = port_main.main(SLICE_ARGS + [f"--spmm_method={method}"])
+        counts = dict(K.LAUNCHES)
+        log(f"  launch counts after --spmm_method={method}: {counts}")
+        assert counts[kernel] > 0, f"{kernel} never launched on the slice"
+        expect = {k: (counts[kernel] if k == kernel else 0) for k in K.LAUNCHES}
+        assert counts == expect, f"--spmm_method={method} launched {counts}"
+        launches[kernel] = counts[kernel]
+        rec = results[0].records
+        assert rec.shape == (3, 6) and np.isfinite(rec).all(), rec
+        step_ms[method] = results[0].step_ms
+        log(f"  step_ms ({method}) = {step_ms[method]} [{card_name}]")
+    log("  one-step parity, f32 kernel vs plain version (dropout 0):")
+    check_step_parity(cfg, pd)
+
+    kernels = [{"name": name, "route": "cuda", "source": SOURCE,
+                "replaces": KERNELS[name], "launches": launches[name],
+                "max_abs_err": stats[name]["max_abs_err"],
+                "max_rel_err": stats[name]["max_rel_err"],
+                "ms": stats[name]["ms"], "plain_ms": stats[name]["plain_ms"]}
+               for name in KERNELS]
+    print(json.dumps({"kernels": kernels, "step_ms": step_ms,
+                      "card": card_name}))
+    print(card_name)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

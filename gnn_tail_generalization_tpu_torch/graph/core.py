@@ -1,0 +1,200 @@
+"""CSR graph container and host-side graph construction.
+
+The port of ``gnn_tail_generalization_tpu/graph/core.py``. The edge list is
+kept twice as compressed sparse rows: grouped by destination (the forward
+SpMM ``y[dst] += w * x[src]``) and grouped by source (the transposed view the
+SpMM backward runs on). Both are built once on the host. There are no padding
+edges: the JAX package pads for XLA's static shapes, and a CSR needs none.
+
+Reference parity (semantics, not code):
+- loader pipeline symmetrize -> remove self loops -> add self loops
+  (the reference's ``trainer_node_classification.py:655-662``);
+- degree semantics of the conv normalization: in/out degree of the directed
+  edge list, *including* self loops, clamped to >= 1 by the conv
+  (``GNN_model/GCN.py:205-213,242-250``).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class Graph:
+    """Immutable CSR graph. Row ``r`` of the forward CSR holds the edges into
+    node ``r``: ``indices[indptr[r]:indptr[r+1]]`` are their sources, in the
+    order of a stable sort of the edge list by destination. The ``*_t``
+    arrays are the same edges grouped by source (the CSR of A^T).
+
+    ``dense_adj`` is an optional [N, N] ``A[dst, src] = w`` for small graphs,
+    where one dense matmul beats any sparse kernel (see ops/spmm.py)."""
+
+    indptr: torch.Tensor  # [N + 1] int32
+    indices: torch.Tensor  # [E] int32 source ids
+    weight: torch.Tensor  # [E] float32
+    indptr_t: torch.Tensor  # [N + 1] int32, rows = source nodes
+    indices_t: torch.Tensor  # [E] int32 destination ids
+    weight_t: torch.Tensor  # [E] float32
+    deg_out: torch.Tensor  # [N] float32, includes self loops and duplicates
+    deg_in: torch.Tensor  # [N] float32
+    dense_adj: Optional[torch.Tensor]
+    n_node: int
+    n_edge: int
+
+    def transpose(self) -> "Graph":
+        """The reversed-edge graph."""
+        return Graph(
+            indptr=self.indptr_t, indices=self.indices_t, weight=self.weight_t,
+            indptr_t=self.indptr, indices_t=self.indices, weight_t=self.weight,
+            deg_out=self.deg_in, deg_in=self.deg_out,
+            dense_adj=None if self.dense_adj is None else self.dense_adj.T,
+            n_node=self.n_node, n_edge=self.n_edge,
+        )
+
+    def to(self, device) -> "Graph":
+        moved = {f.name: getattr(self, f.name).to(device)
+                 for f in dataclasses.fields(self)
+                 if isinstance(getattr(self, f.name), torch.Tensor)}
+        return dataclasses.replace(self, **moved)
+
+
+# ---------------------------------------------------------------------------
+# Host-side edge-index transforms (numpy; run once at data-load time)
+# ---------------------------------------------------------------------------
+
+
+def _as_np(edge_index) -> np.ndarray:
+    e = np.asarray(edge_index)
+    if e.ndim != 2 or e.shape[0] != 2:
+        raise ValueError(f"edge_index must be [2, E], got {e.shape}")
+    return e.astype(np.int64)
+
+
+def coalesce(edge_index: np.ndarray, n_node: int) -> np.ndarray:
+    """Deduplicate edges, returning them sorted by (dst, src)."""
+    e = _as_np(edge_index)
+    keys = e[1] * n_node + e[0]
+    keys = np.unique(keys)
+    return np.stack([keys % n_node, keys // n_node])
+
+
+def symmetrize(edge_index: np.ndarray, n_node: Optional[int] = None) -> np.ndarray:
+    """A <- A + A^T with deduplication."""
+    e = _as_np(edge_index)
+    if n_node is None:
+        n_node = int(e.max()) + 1
+    both = np.concatenate([e, e[::-1]], axis=1)
+    return coalesce(both, n_node)
+
+
+def remove_self_loops(edge_index: np.ndarray) -> np.ndarray:
+    e = _as_np(edge_index)
+    return e[:, e[0] != e[1]]
+
+
+def add_self_loops(edge_index: np.ndarray, n_node: int) -> np.ndarray:
+    e = _as_np(edge_index)
+    loops = np.arange(n_node, dtype=np.int64)
+    return np.concatenate([e, np.stack([loops, loops])], axis=1)
+
+
+def standard_pipeline(edge_index: np.ndarray, n_node: int) -> np.ndarray:
+    """symmetrize -> remove self loops -> add self loops, the node-classification
+    loader pipeline."""
+    e = symmetrize(edge_index, n_node)
+    e = remove_self_loops(e)
+    return add_self_loops(e, n_node)
+
+
+def degrees(edge_index: np.ndarray, n_node: int):
+    """(out_degree, in_degree) of the directed edge list, including self loops
+    and duplicates (dgl out_degrees/in_degrees)."""
+    e = _as_np(edge_index)
+    deg_out = np.bincount(e[0], minlength=n_node).astype(np.float32)
+    deg_in = np.bincount(e[1], minlength=n_node).astype(np.float32)
+    return deg_out, deg_in
+
+
+def _csr(rows: np.ndarray, cols: np.ndarray, w: np.ndarray, n_node: int):
+    """(indptr, indices, weight) grouping edges by ``rows``, stable."""
+    order = np.argsort(rows, kind="stable")
+    indptr = np.zeros(n_node + 1, np.int64)
+    np.cumsum(np.bincount(rows, minlength=n_node), out=indptr[1:])
+    return (torch.from_numpy(indptr.astype(np.int32)),
+            torch.from_numpy(cols[order].astype(np.int32)),
+            torch.from_numpy(np.ascontiguousarray(w[order], np.float32)))
+
+
+def build_graph(
+    edge_index: np.ndarray,
+    n_node: int,
+    edge_weight: Optional[np.ndarray] = None,
+    *,
+    dense_threshold: int = 8192,
+    with_dense: Optional[bool] = None,
+) -> Graph:
+    """Build the CPU ``Graph`` from a host edge list ``[2, E]`` (row 0 the
+    sources). ``edge_weight=None`` means unit weights (the GCN degree
+    normalization is applied outside the SpMM, see nn/gcn.py). Graphs with
+    ``n_node <= dense_threshold`` also get ``dense_adj``; ``with_dense``
+    overrides that."""
+    e = _as_np(edge_index)
+    n_edge = e.shape[1]
+    if n_edge >= 2**31 or n_node >= 2**31:
+        raise ValueError("the CSR kernels index with int32")
+    if edge_weight is None:
+        w = np.ones(n_edge, dtype=np.float32)
+    else:
+        w = np.asarray(edge_weight, dtype=np.float32)
+        if w.shape != (n_edge,):
+            raise ValueError(f"edge_weight shape {w.shape} != ({n_edge},)")
+
+    deg_out, deg_in = degrees(e, n_node)
+    indptr, indices, weight = _csr(e[1], e[0], w, n_node)
+    indptr_t, indices_t, weight_t = _csr(e[0], e[1], w, n_node)
+
+    if with_dense is None:
+        with_dense = n_node <= dense_threshold
+    dense = None
+    if with_dense:
+        dense_np = np.zeros((n_node, n_node), dtype=np.float32)
+        np.add.at(dense_np, (e[1], e[0]), w)
+        dense = torch.from_numpy(dense_np)
+
+    return Graph(
+        indptr=indptr, indices=indices, weight=weight,
+        indptr_t=indptr_t, indices_t=indices_t, weight_t=weight_t,
+        deg_out=torch.from_numpy(deg_out), deg_in=torch.from_numpy(deg_in),
+        dense_adj=dense, n_node=n_node, n_edge=n_edge,
+    )
+
+
+def loss_masked_view(
+    g: Graph,
+    edge_index: np.ndarray,
+    dst_mask: np.ndarray,
+    edge_weight: Optional[np.ndarray] = None,
+) -> Graph:
+    """A final-layer training view of ``g``: only edges whose destination is
+    inside ``dst_mask`` are kept, but the degree arrays (i.e. the GCN
+    normalization) stay those of the FULL graph.
+
+    When only loss-masked rows of the last conv's output feed the loss (NLL
+    over the train mask), aggregating the other rows is dead work: the step's
+    loss and gradient are identical with them dropped, and the final layer's
+    forward and backward SpMMs shrink with the mask. Rows outside the mask
+    aggregate to zero, so the view must ONLY be used when nothing row-coupling
+    (cross-row norms, edgewise losses, collect_SE) consumes them.
+
+    ``edge_index``/``edge_weight`` are the HOST arrays ``g`` was built from.
+    The view carries ``dense_adj`` exactly when ``g`` does."""
+    e = _as_np(edge_index)
+    m = np.asarray(dst_mask, bool)
+    keep = m[e[1]]
+    w_sub = None if edge_weight is None else np.asarray(edge_weight)[keep]
+    sub = build_graph(e[:, keep], g.n_node, w_sub,
+                      with_dense=g.dense_adj is not None)
+    return dataclasses.replace(sub, deg_out=g.deg_out, deg_in=g.deg_in)

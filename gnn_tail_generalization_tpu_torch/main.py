@@ -1,0 +1,128 @@
+"""Experiment CLI of the PyTorch port.
+
+Takes the config flags of the root ``main.py`` (every field of ``Config``)
+and prints the same per-epoch and mean ± std lines. The port trains the
+TeacherGNN so far.
+
+Usage:
+  python -m gnn_tail_generalization_tpu_torch.main --dataset=ogbn-arxiv \
+      --train_which=TeacherGNN --epochs=3 --device=cuda
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from .config import Config, apply_arch_configs, build_config
+from .data.datasets import load_dataset, prepare
+from .train.loops import TrainResult, train_teacher
+
+_NOT_PORTED = {
+    "SEMLP": "A6", "StudentBaseMLP": "A6", "GraphMLP": "A6", "LP": "A7",
+}
+
+
+def parse_args(argv: Optional[List[str]] = None):
+    parser = argparse.ArgumentParser(
+        description="Tail and cold start generalization (PyTorch/CUDA port)")
+    for f in dataclasses.fields(Config):
+        if f.name in ("TeacherGNN", "StudentBaseMLP", "preStep", "midStep",
+                      "lpStep"):
+            continue  # derived sub-configs
+        default = f.default if f.default is not dataclasses.MISSING else None
+        optional_types = {"skip_weight": float, "num_groups": int}
+        if isinstance(default, bool):
+            parser.add_argument(f"--{f.name}", type=int, default=None)
+        elif f.name in optional_types:
+            parser.add_argument(f"--{f.name}", type=optional_types[f.name],
+                                default=None)
+        elif isinstance(default, (int, float, str)) or default is None:
+            cast = type(default) if default is not None else str
+            parser.add_argument(f"--{f.name}", type=cast, default=None)
+    parser.add_argument("--data_root", type=str, default="data")
+    parser.add_argument("--log_every", type=int, default=20)
+    parser.add_argument("--n_devices", type=int, default=1,
+                        help="only 1: the multi-device layer is not ported "
+                             "yet (ROADMAP A12)")
+    parser.add_argument("--hier_mesh", type=str, default=None,
+                        help="not ported yet (ROADMAP A12)")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="torch device to train on (cuda or cpu)")
+    ns = parser.parse_args(argv)
+    cli_only = ("data_root", "log_every", "n_devices", "hier_mesh", "device")
+    overrides = {k: v for k, v in vars(ns).items()
+                 if v is not None and k not in cli_only}
+    for f in dataclasses.fields(Config):  # int-encoded bools back to bool
+        if f.name in overrides and isinstance(f.default, bool):
+            overrides[f.name] = bool(overrides[f.name])
+    return overrides, ns
+
+
+def _check_supported(cfg: Config, overrides: dict, ns) -> None:
+    if ns.n_devices > 1 or ns.hier_mesh:
+        raise NotImplementedError(
+            "--n_devices>1 / --hier_mesh: the multi-device layer is not "
+            "ported yet (ROADMAP A12)")
+    if cfg.prog or "records_path" in overrides or "records_desc" in overrides:
+        raise NotImplementedError(
+            "--prog / --records_path / --records_desc: utils/records.py is "
+            "not ported yet (ROADMAP A11)")
+    if cfg.exp_mode == "I2_GTL" and cfg.task != "nodeC":
+        raise NotImplementedError(
+            "link-prediction transfer is not ported yet (ROADMAP A9)")
+    if cfg.train_which != "TeacherGNN":
+        item = _NOT_PORTED.get(cfg.train_which, "A6-A10")
+        raise NotImplementedError(
+            f"--train_which={cfg.train_which} is not ported yet "
+            f"(ROADMAP {item})")
+
+
+def main(argv: Optional[List[str]] = None) -> List[TrainResult]:
+    overrides, ns = parse_args(argv)
+    cfg = build_config(**overrides)
+    _check_supported(cfg, overrides, ns)
+    device = torch.device(ns.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device=cuda, but torch finds no CUDA device")
+    # f32 matmuls in full f32, as the JAX package's Precision.HIGHEST
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    print(f"Configs:\n  dataset={cfg.dataset} train_which={cfg.train_which} "
+          f"type_trick={cfg.type_trick} num_layers={cfg.num_layers} "
+          f"dim_hidden={cfg.dim_hidden}")
+    data = load_dataset(cfg, ns.data_root)
+    if data.name.startswith("synthetic"):
+        print(f"NOTE: no raw dataset files found under {ns.data_root!r}; "
+              f"running on a synthetic stand-in with the preset shapes.")
+        cfg = apply_arch_configs(dataclasses.replace(
+            cfg, N_nodes=data.x.shape[0], num_feats=data.x.shape[1],
+            num_classes=int(data.y.max()) + 1))
+    pd = prepare(data, cfg)
+
+    results = []
+    for seed in range(cfg.N_exp):
+        res = train_teacher(cfg, pd, seed=cfg.random_seed + seed,
+                            log_every=ns.log_every, device=device)
+        results.append(res)
+        print(f"seed {seed}: " + " ".join(
+            f"{c}={res.records[-1, i]:.2f}" for i, c in enumerate(res.columns)))
+
+    stacked = np.stack([r.records for r in results])  # [seeds, epochs, cols]
+    final = stacked[:, -1, :]
+    cols = results[-1].columns
+    print("=== mean ± std over seeds (final epoch) ===")
+    for i, c in enumerate(cols):
+        print(f"  {c}: {final[:, i].mean():.2f} ± {final[:, i].std():.2f}")
+    best_i = cols.index("acc_test")
+    print(f"best acc_test over epochs, per seed: "
+          f"{stacked[:, :, best_i].max(axis=1)}")
+    return results
+
+
+if __name__ == "__main__":
+    main()

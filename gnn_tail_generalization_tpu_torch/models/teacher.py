@@ -1,0 +1,69 @@
+"""TeacherGNN — the Cold Brew teacher wrapper.
+
+The port of ``gnn_tail_generalization_tpu/models/teacher.py`` (the
+reference's ``GNN_model/GNN_normalizations.py:9-65``):
+- num_classes is rebound to dim_commonEmb (== num_classes unless
+  has_proj2class);
+- optional featureless mode: x * 0 (change_to_featureless) or learnable input
+  embeddings of dim_learnable_input;
+- the proj2class head needs ``nn/mlp.py``, which is not ported yet
+  (ROADMAP A3, mlp/proj2class), so ``has_proj2class`` raises.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ..config import Config
+from ..graph.core import Graph
+from ..nn.backbone import TricksCombBackbone
+
+
+def backbone_from_config(cfg: Config, generator: Optional[torch.Generator]
+                         ) -> TricksCombBackbone:
+    return TricksCombBackbone(
+        num_feats=cfg.dim_learnable_input or cfg.num_feats,
+        num_classes=cfg.dim_commonEmb,
+        dim_hidden=cfg.dim_hidden,
+        num_layers=cfg.num_layers,
+        n_node=cfg.N_nodes,
+        type_trick=cfg.type_trick,
+        res_alpha=cfg.res_alpha,
+        dropout=cfg.dropout,
+        whetherHasSE=tuple(cfg.TeacherGNN.whetherHasSE),
+        spmm_method=cfg.spmm_method,
+        apply_graph_dropout=cfg.apply_graph_dropout,
+        generator=generator,
+    )
+
+
+class TeacherGNN(nn.Module):
+    def __init__(self, cfg: Config, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if cfg.has_proj2class:
+            raise NotImplementedError(
+                "has_proj2class: the proj2class MLP is not ported yet "
+                "(ROADMAP A3, mlp/proj2class)")
+        self.cfg = cfg
+        self.backbone = backbone_from_config(cfg, generator)
+        if cfg.dim_learnable_input > 0:
+            self.input_embs = nn.Parameter(torch.empty(
+                cfg.N_nodes, cfg.dim_learnable_input))
+            nn.init.normal_(self.input_embs, std=0.001, generator=generator)
+        else:
+            self.register_parameter("input_embs", None)
+
+    def forward(self, g: Graph, x: torch.Tensor, *,
+                generator: Optional[torch.Generator] = None,
+                want_les: bool = False, g_last: Optional[Graph] = None):
+        """Returns (commonEmb, emb4classi_full, se_reg_all, les). With no
+        proj2class head the classifier view is commonEmb itself."""
+        if self.cfg.TeacherGNN.change_to_featureless:
+            x = x * 0
+        if self.input_embs is not None:
+            x = self.input_embs
+        common, se_reg_all, les = self.backbone(
+            g, x, generator=generator, want_les=want_les, g_last=g_last)
+        return common, common, se_reg_all, les

@@ -1,0 +1,133 @@
+"""CSR SpMM kernels, their plain PyTorch versions and their launch counts.
+
+``y[r, :] = sum_{e in indptr[r]..indptr[r+1]} w_e * x[indices_e, :]``, with
+``indptr`` int32 ``[n_rows + 1]``, ``indices`` int32 ``[E]`` (source rows of
+``x``, each ``< x.shape[0]``), ``w`` ``[E]`` and ``x`` ``[n_src, d]``; ``y`` is
+``[n_rows, d]`` float32.
+
+- ``spmm_csr_f32`` replaces the f32 Pallas kernel
+  ``gnn_tail_generalization_tpu/ops/spmm_pallas.py:_segment_matmul_kernel``.
+- ``spmm_csr_bf16`` replaces the bf16 one, ``_segment_matmul_packed_kernel``:
+  ``x`` and ``w`` are rounded to bf16 (RTNE), products and sums are f32, and
+  ``y`` is f32.
+
+Both kernels live in ``csrc/spmm_csr.cu``; that file's header says what bounds
+them on the card and how the design answers it. On a CPU tensor each wrapper
+runs the plain version (``spmm_csr_plain``); on a CUDA tensor it launches its
+kernel or raises. ``LAUNCHES`` counts kernel launches per wrapper and calls of
+the plain version, so a run can show which one it went through.
+"""
+from __future__ import annotations
+
+import torch
+
+LAUNCHES = {"spmm_csr_f32": 0, "spmm_csr_bf16": 0, "spmm_csr_plain": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def spmm_csr_plain(indptr: torch.Tensor, indices: torch.Tensor,
+                   weight: torch.Tensor, x: torch.Tensor, *,
+                   bf16: bool = False) -> torch.Tensor:
+    """The plain version: expand ``indptr`` to row ids and ``index_add_``.
+    ``bf16=True`` rounds ``x`` and ``w`` to bf16 first, as the bf16 kernel
+    does; the product of two bf16 values is exact in f32, so the two differ
+    only in the order of the sums."""
+    LAUNCHES["spmm_csr_plain"] += 1
+    n_rows = indptr.numel() - 1
+    if bf16:
+        x = x.to(torch.bfloat16)
+        weight = weight.to(torch.bfloat16)
+    x = x.float()
+    weight = weight.float()
+    rows = torch.repeat_interleave(
+        torch.arange(n_rows, device=x.device), (indptr[1:] - indptr[:-1]).long(),
+        output_size=indices.numel())
+    y = torch.zeros(n_rows, x.shape[1], dtype=torch.float32, device=x.device)
+    return y.index_add_(0, rows, weight[:, None] * x[indices.long()])
+
+
+def _check(indptr, indices, weight, x) -> None:
+    if indptr.dtype != torch.int32 or indices.dtype != torch.int32:
+        raise TypeError(f"indptr and indices must be int32, got "
+                        f"{indptr.dtype} and {indices.dtype}")
+    if indptr.dim() != 1 or indices.dim() != 1 or weight.shape != indices.shape:
+        raise ValueError(f"bad CSR shapes: indptr {tuple(indptr.shape)}, "
+                         f"indices {tuple(indices.shape)}, "
+                         f"weight {tuple(weight.shape)}")
+    if x.dim() != 2:
+        raise ValueError(f"x must be 2-D, got shape {tuple(x.shape)}")
+    for name, t in (("indptr", indptr), ("indices", indices),
+                    ("weight", weight), ("x", x)):
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if indptr.numel() < 1 or indices.numel() >= 2**31 or x.shape[1] >= 2**31:
+        raise ValueError("sizes outside the kernel's int32 indexing")
+
+
+def _vec_width(d: int, x: torch.Tensor, widths) -> int:
+    """The widest vector (elements per lane load) that divides ``d`` and
+    keeps every row of ``x`` aligned to it."""
+    for v in widths:
+        if d % v == 0 and x.data_ptr() % (v * x.element_size()) == 0:
+            return v
+    return 1
+
+
+def _launch(name: str, indptr, indices, weight, x, widths) -> torch.Tensor:
+    from . import _build
+
+    lib = _build.load()
+    n_rows, d = indptr.numel() - 1, x.shape[1]
+    y = torch.empty(n_rows, d, dtype=torch.float32, device=x.device)
+    vec = _vec_width(d, x, widths)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        LAUNCHES[name] += 1
+        rc = getattr(lib, name)(indptr.data_ptr(), indices.data_ptr(),
+                                weight.data_ptr(), x.data_ptr(), y.data_ptr(),
+                                n_rows, d, vec, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    return y
+
+
+def _on_cuda(x: torch.Tensor) -> bool:
+    if x.device.type == "cpu":
+        return False
+    if x.device.type == "cuda":
+        return True
+    raise ValueError(f"no SpMM kernel for device {x.device}")
+
+
+def spmm_csr_f32(indptr: torch.Tensor, indices: torch.Tensor,
+                 weight: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """f32 CSR SpMM: the CUDA kernel on a CUDA tensor, the plain version on
+    a CPU one."""
+    if not _on_cuda(x):
+        return spmm_csr_plain(indptr, indices, weight, x)
+    _check(indptr, indices, weight, x)
+    if x.dtype != torch.float32 or weight.dtype != torch.float32:
+        raise TypeError(f"spmm_csr_f32 takes float32 x and weight, got "
+                        f"{x.dtype} and {weight.dtype}")
+    return _launch("spmm_csr_f32", indptr, indices, weight, x, (4, 2, 1))
+
+
+def spmm_csr_bf16(indptr: torch.Tensor, indices: torch.Tensor,
+                  weight: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """bf16-operand CSR SpMM with f32 accumulation and f32 output: the CUDA
+    kernel on a CUDA tensor, the plain version on a CPU one."""
+    if not _on_cuda(x):
+        return spmm_csr_plain(indptr, indices, weight, x, bf16=True)
+    _check(indptr, indices, weight, x)
+    if not (x.is_floating_point() and weight.is_floating_point()):
+        raise TypeError(f"spmm_csr_bf16 takes floating x and weight, got "
+                        f"{x.dtype} and {weight.dtype}")
+    xb = x.to(torch.bfloat16)  # RTNE, as the TPU kernel's cast
+    wb = weight.to(torch.bfloat16)
+    return _launch("spmm_csr_bf16", indptr, indices, wb, xb, (8, 4, 2, 1))

@@ -1,0 +1,203 @@
+"""The PyTorch port's host-side code against the JAX package's: config chain,
+synthetic generators, edge pipeline, degree analysis, CSR and degrees —
+exact equality — and a subprocess proving the port imports no JAX."""
+import dataclasses
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from gnn_tail_generalization_tpu import config as jcfg
+from gnn_tail_generalization_tpu.data import datasets as jds
+from gnn_tail_generalization_tpu.data import synthetic as jsyn
+from gnn_tail_generalization_tpu.graph import analysis as jan
+from gnn_tail_generalization_tpu.graph import core as jcore
+
+from gnn_tail_generalization_tpu_torch import config as tcfg
+from gnn_tail_generalization_tpu_torch.data import datasets as tds
+from gnn_tail_generalization_tpu_torch.data import synthetic as tsyn
+from gnn_tail_generalization_tpu_torch.graph import analysis as tan
+from gnn_tail_generalization_tpu_torch.graph import core as tcore
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def assert_same_fields(a, b):
+    """Every field of two dataclass instances is equal (arrays exactly)."""
+    for f in dataclasses.fields(a):
+        va, vb = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(va, np.ndarray) or isinstance(vb, np.ndarray):
+            np.testing.assert_array_equal(va, vb, err_msg=f.name)
+        else:
+            assert va == vb, f.name
+
+
+@pytest.mark.parametrize("dataset", sorted(jcfg._DATASET_PRESETS))
+def test_build_config_matches(dataset):
+    j = jcfg.build_config(dataset=dataset, train_which="TeacherGNN")
+    t = tcfg.build_config(dataset=dataset, train_which="TeacherGNN")
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+
+
+def test_arxiv_best_config_is_initial_branch():
+    cfg = tcfg.build_config(dataset="ogbn-arxiv", train_which="TeacherGNN")
+    assert (cfg.type_trick, cfg.num_layers, cfg.dim_hidden) == (
+        "InitialBatchNorm", 2, 256)
+    assert (cfg.dropout, cfg.weight_decay) == (0.1, 0.0)
+
+
+def test_synthetic_generators_match():
+    np.testing.assert_array_equal(tsyn.fast_powerlaw_graph(500, 3000, 3),
+                                  jsyn.fast_powerlaw_graph(500, 3000, 3))
+    for a, b in zip(tsyn.synthetic_features_labels(200, 16, 5, 1),
+                    jsyn.synthetic_features_labels(200, 16, 5, 1)):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("n_node", [300, 20_500])  # both generator branches
+def test_synthetic_planetoid_matches(n_node):
+    kw = dict(n_node=n_node, n_feat=24, n_class=4, seed=2, name="synthetic-x")
+    assert_same_fields(tsyn.synthetic_planetoid(**kw),
+                       jsyn.synthetic_planetoid(**kw))
+
+
+@pytest.mark.parametrize("special", [True, False])
+def test_pipeline_and_degree_analysis_match(rng, special):
+    n = 400
+    e = np.stack([rng.integers(0, n, 1500), rng.integers(0, n, 1500)])
+    ej, et = jcore.standard_pipeline(e, n), tcore.standard_pipeline(e, n)
+    np.testing.assert_array_equal(et, ej)
+    sj, st = jan.degree_splits(n, ej, special), tan.degree_splits(n, et, special)
+    assert_same_fields(st, sj)
+    if special:
+        for a, b in zip(tan.craft_isolation(et, st.zero_deg_mask),
+                        jan.craft_isolation(ej, sj.zero_deg_mask)):
+            np.testing.assert_array_equal(a, b)
+
+
+def _rows(indptr):
+    return np.repeat(np.arange(len(indptr) - 1), np.diff(indptr.numpy()))
+
+
+def assert_csr_matches(tg, jg):
+    """The port's CSR pair holds exactly the JAX Graph's real (unpadded)
+    edges in the same order, with the same degrees."""
+    e = jg.n_edge
+    assert (tg.n_node, tg.n_edge) == (jg.n_node, e)
+    assert tg.indptr.dtype == tg.indices.dtype == torch.int32
+    np.testing.assert_array_equal(tg.indices.numpy(), np.asarray(jg.senders)[:e])
+    np.testing.assert_array_equal(_rows(tg.indptr), np.asarray(jg.receivers)[:e])
+    np.testing.assert_array_equal(tg.weight.numpy(), np.asarray(jg.edge_weight)[:e])
+    np.testing.assert_array_equal(tg.indices_t.numpy(), np.asarray(jg.senders_t)[:e])
+    np.testing.assert_array_equal(_rows(tg.indptr_t), np.asarray(jg.receivers_t)[:e])
+    np.testing.assert_array_equal(tg.weight_t.numpy(),
+                                  np.asarray(jg.edge_weight_t)[:e])
+    np.testing.assert_array_equal(tg.deg_out.numpy(), np.asarray(jg.deg_out))
+    np.testing.assert_array_equal(tg.deg_in.numpy(), np.asarray(jg.deg_in))
+    if jg.dense_adj is None:
+        assert tg.dense_adj is None
+    else:
+        np.testing.assert_array_equal(tg.dense_adj.numpy(), np.asarray(jg.dense_adj))
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_csr_matches_jax_graph(rng, weighted):
+    n = 150
+    e = jcore.standard_pipeline(
+        np.stack([rng.integers(0, n, 600), rng.integers(0, n, 600)]), n)
+    w = rng.normal(size=e.shape[1]).astype(np.float32) if weighted else None
+    assert_csr_matches(tcore.build_graph(e, n, w), jcore.build_graph(e, n, w))
+    tg = tcore.build_graph(e, n, w, with_dense=False)
+    assert tg.dense_adj is None
+    tt = tg.transpose()
+    assert torch.equal(tt.indptr, tg.indptr_t) and torch.equal(tt.deg_in, tg.deg_out)
+
+
+def test_loss_masked_view_matches(rng):
+    n = 120
+    e = jcore.standard_pipeline(
+        np.stack([rng.integers(0, n, 500), rng.integers(0, n, 500)]), n)
+    mask = rng.random(n) < 0.3
+    jg, tg = jcore.build_graph(e, n), tcore.build_graph(e, n)
+    jv = jcore.loss_masked_view(jg, e, mask)
+    tv = tcore.loss_masked_view(tg, e, mask)
+    assert_csr_matches(tv, jv)
+    assert tv.n_edge < tg.n_edge
+    assert torch.equal(tv.deg_in, tg.deg_in)  # the full graph's degrees
+    # rows outside the mask hold no edges
+    counts = np.diff(tv.indptr.numpy())
+    assert (counts[~mask] == 0).all()
+
+
+def test_prepare_matches(rng):
+    n = 300
+    data = jsyn.synthetic_planetoid(n_node=n, n_feat=20, n_class=4, seed=5)
+    cfg = tcfg.build_config(dataset="", train_which="TeacherGNN")
+    tdata = tds.NodeData(**dataclasses.asdict(data))
+    tp = tds.prepare(tdata, cfg, spmm_dense_threshold=64)
+    jp = jds.prepare(data, jcfg.build_config(dataset="", train_which="TeacherGNN"),
+                     spmm_dense_threshold=64)
+    for f in dataclasses.fields(tds.PreparedData):
+        if f.name == "splits":
+            assert_same_fields(tp.splits, jp.splits)
+        elif f.name == "graph":
+            assert_csr_matches(tp.graph, jp.graph)
+        elif getattr(jp, f.name) is None:
+            assert getattr(tp, f.name) is None
+        else:
+            np.testing.assert_array_equal(getattr(tp, f.name), getattr(jp, f.name))
+
+
+def test_load_dataset_synthetic_and_raw_files(tmp_path):
+    small = tcfg.build_config(dataset="TEXAS", train_which="TeacherGNN")
+    jd = jds.load_dataset(jcfg.build_config(dataset="TEXAS"), str(tmp_path))
+    assert_same_fields(tds.load_dataset(small, str(tmp_path)), jd)
+    cfg = tcfg.build_config(dataset="Cora", train_which="TeacherGNN")
+    os.makedirs(tmp_path / "Cora" / "raw")
+    (tmp_path / "Cora" / "raw" / "ind.cora.x").write_bytes(b"")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tds.load_dataset(cfg, str(tmp_path))
+    with pytest.raises(ValueError, match="unknown dataset"):
+        tds.load_dataset(dataclasses.replace(cfg, dataset="nope"), None)
+
+
+_NO_JAX = r"""
+import sys
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "gnn_tail_generalization_tpu")
+for m in [m for m in sys.modules if m.split(".")[0] in BLOCKED]:
+    del sys.modules[m]
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"the port imported {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+import importlib, pkgutil
+import numpy as np
+import gnn_tail_generalization_tpu_torch as pkg
+for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+    importlib.import_module(m.name)
+from gnn_tail_generalization_tpu_torch.config import build_config
+from gnn_tail_generalization_tpu_torch.data.synthetic import synthetic_planetoid
+from gnn_tail_generalization_tpu_torch.data.datasets import prepare
+from gnn_tail_generalization_tpu_torch.train.loops import train_teacher
+data = synthetic_planetoid(n_node=80, n_feat=12, n_class=3, seed=0)
+cfg = build_config(dataset="", train_which="TeacherGNN", N_nodes=80,
+                   num_feats=12, num_classes=3, dim_hidden=8,
+                   type_trick="InitialBatchNorm", whetherHasSE="111")
+res = train_teacher(cfg, prepare(data, cfg, spmm_dense_threshold=10), epochs=1)
+assert np.isfinite(res.records).all(), res.records
+assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+print("NO_JAX_OK")
+"""
+
+
+def test_port_imports_no_jax():
+    proc = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and "NO_JAX_OK" in proc.stdout, proc.stderr[-3000:]

@@ -1,0 +1,180 @@
+"""The port's SpMM (ops/spmm.py, ops/spmm_kernels.py) against the JAX
+package's: the plain f32 and bf16 versions against the Pallas kernels run in
+interpret mode, and the transposed-CSR backward against ``jax.vjp`` of
+``spmm`` under ``pallas`` and ``pallas_bf16``. Tolerance rtol = atol = 1e-4,
+as tests/test_spmm_pallas.py: the operands are the same, the summation order
+differs. On the CPU the kernel wrappers run their plain versions; the CUDA
+kernels themselves are checked on the card by chip_smoke.py."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gnn_tail_generalization_tpu.graph import core as jcore
+from gnn_tail_generalization_tpu.ops import spmm as jspmm
+from gnn_tail_generalization_tpu.ops import spmm_pallas as sp
+
+from gnn_tail_generalization_tpu_torch.graph import core as tcore
+from gnn_tail_generalization_tpu_torch.ops import _build
+from gnn_tail_generalization_tpu_torch.ops import spmm as tspmm
+from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
+
+TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def random_edges(rng, n, e, hub=False):
+    """Weighted random edges; ``hub`` adds the hub-row stress case of
+    tests/test_spmm_pallas.py (node 7 takes 500 in-edges)."""
+    src, dst = rng.integers(0, n, e), rng.integers(0, n, e)
+    if hub:
+        src = np.concatenate([src, rng.integers(0, n, 500)])
+        dst = np.concatenate([dst, np.full(500, 7)])
+    w = rng.normal(size=len(src)).astype(np.float32)
+    return np.stack([src, dst]), w
+
+
+CASES = [  # (n, e, d, hub): d=48 and 256 take both JAX bf16 layouts
+    (90, 600, 256, False), (40, 100, 48, True)]
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n,e,d,hub", CASES)
+def test_plain_matches_pallas_interpret(rng, n, e, d, hub, bf16):
+    ei, w = random_edges(rng, n, e, hub)
+    jg = jcore.build_graph(ei, n, edge_weight=w, with_dense=False)
+    plan = sp.build_plan(np.asarray(jg.senders), np.asarray(jg.receivers),
+                         np.asarray(jg.edge_weight), n, rb=8, eb=128)
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    y_j = sp.spmm_via_plan(plan, jnp.asarray(x), interpret=True,
+                           compute_dtype=jnp.bfloat16 if bf16 else jnp.float32)
+    tg = tcore.build_graph(ei, n, w, with_dense=False)
+    wrapper = K.spmm_csr_bf16 if bf16 else K.spmm_csr_f32
+    K.reset_launch_counts()
+    y_t = wrapper(tg.indptr, tg.indices, tg.weight, torch.from_numpy(x))
+    # on the CPU the wrapper ran the plain version, never a kernel
+    assert K.LAUNCHES == {"spmm_csr_f32": 0, "spmm_csr_bf16": 0,
+                          "spmm_csr_plain": 1}
+    assert y_t.dtype == torch.float32 and y_t.shape == (n, d)
+    np.testing.assert_allclose(y_t.numpy(), np.asarray(y_j), **TOL)
+
+
+@pytest.mark.parametrize("method", ["pallas", "pallas_bf16"])
+@pytest.mark.parametrize("n,e,d,hub", CASES)
+def test_spmm_grad_matches_jax_vjp(rng, n, e, d, hub, method):
+    ei, w = random_edges(rng, n, e, hub)
+    jg = jcore.build_graph(ei, n, edge_weight=w, with_dense=False,
+                           with_plans=True, plan_rb=8, plan_eb=128)
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    ct = rng.normal(size=(n, d)).astype(np.float32)
+    y_j, vjp = jax.vjp(lambda v: jspmm.spmm(jg, v, method), jnp.asarray(x))
+    (dx_j,) = vjp(jnp.asarray(ct))
+
+    tg = tcore.build_graph(ei, n, w, with_dense=False)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    y_t = tspmm.spmm(tg, xt, method)
+    y_t.backward(torch.from_numpy(ct))
+    np.testing.assert_allclose(y_t.detach().numpy(), np.asarray(y_j), **TOL)
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(dx_j), **TOL)
+
+
+@pytest.mark.parametrize("method", ["auto", "dense", "gather", "pallas",
+                                    "pallas_bf16"])
+def test_methods_on_a_dense_graph_match_jax(rng, method):
+    """With dense_adj, auto/dense/pallas run the dense product and
+    pallas_bf16 the bf16-operand f32-accumulate one, as the JAX package
+    does on a graph without plans; gather runs the plain version."""
+    n = 50
+    ei, w = random_edges(rng, n, 300)
+    jg = jcore.build_graph(ei, n, edge_weight=w)
+    tg = tcore.build_graph(ei, n, w)
+    assert tg.dense_adj is not None
+    x = rng.normal(size=(n, 24)).astype(np.float32)
+    ct = rng.normal(size=(n, 24)).astype(np.float32)
+    y_j, vjp = jax.vjp(lambda v: jspmm.spmm(jg, v, method), jnp.asarray(x))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    y_t = tspmm.spmm(tg, xt, method)
+    y_t.backward(torch.from_numpy(ct))
+    np.testing.assert_allclose(y_t.detach().numpy(), np.asarray(y_j), **TOL)
+    np.testing.assert_allclose(xt.grad.numpy(),
+                               np.asarray(vjp(jnp.asarray(ct))[0]), **TOL)
+
+
+def test_bf16_rounds_operands_and_weights(rng):
+    """The bf16 plain version equals the f32 one on bf16-rounded x and w."""
+    n = 30
+    ei, w = random_edges(rng, n, 200)
+    tg = tcore.build_graph(ei, n, w, with_dense=False)
+    x = torch.from_numpy(rng.normal(size=(n, 8)).astype(np.float32))
+    rw = tg.weight.to(torch.bfloat16).float()
+    y_b = K.spmm_csr_bf16(tg.indptr, tg.indices, tg.weight, x)
+    y_r = K.spmm_csr_f32(tg.indptr, tg.indices, rw, x.to(torch.bfloat16).float())
+    torch.testing.assert_close(y_b, y_r, rtol=0, atol=0)
+    assert not torch.allclose(y_b, K.spmm_csr_f32(tg.indptr, tg.indices,
+                                                  tg.weight, x), rtol=0, atol=0)
+
+
+def test_wrapper_checks():
+    ip = torch.tensor([0, 1, 2], dtype=torch.int32)
+    ix = torch.tensor([1, 0], dtype=torch.int32)
+    w = torch.ones(2)
+    x = torch.ones(2, 4)
+    K._check(ip, ix, w, x)
+    with pytest.raises(TypeError, match="int32"):
+        K._check(ip.long(), ix, w, x)
+    with pytest.raises(ValueError, match="CSR shapes"):
+        K._check(ip, ix, torch.ones(3), x)
+    with pytest.raises(ValueError, match="2-D"):
+        K._check(ip, ix, w, torch.ones(8))
+    with pytest.raises(ValueError, match="contiguous"):
+        K._check(ip, ix, w, torch.ones(4, 2).T)
+    with pytest.raises(ValueError, match="no SpMM kernel"):
+        K.spmm_csr_f32(ip.to("meta"), ix.to("meta"), w.to("meta"), x.to("meta"))
+    with pytest.raises(ValueError, match="unknown spmm method"):
+        tspmm._spmm_impl(tcore.build_graph(np.array([[0], [1]]), 2), x, "nope")
+
+
+@pytest.mark.parametrize("method", ["auto", "gather", "pallas", "pallas_bf16"])
+@pytest.mark.parametrize("shape", [(3, 4), (5, 4), (4,)])
+def test_spmm_rejects_x_of_the_wrong_rows(rng, method, shape):
+    """x must hold one row per node: the CUDA kernels gather x[src] unchecked."""
+    ei, w = random_edges(rng, 4, 10)
+    g = tcore.build_graph(ei, 4, w, with_dense=False)
+    with pytest.raises(ValueError, match=r"must be \[4, d\]"):
+        tspmm.spmm(g, torch.ones(shape), method)
+    assert tspmm.spmm(g, torch.ones(4, 3), method).shape == (4, 3)
+
+
+@pytest.mark.parametrize("d,elem,widths,expect", [
+    (256, 4, (4, 2, 1), 4), (40, 4, (4, 2, 1), 4), (6, 4, (4, 2, 1), 2),
+    (5, 4, (4, 2, 1), 1), (256, 2, (8, 4, 2, 1), 8), (12, 2, (8, 4, 2, 1), 4)])
+def test_vector_width(d, elem, widths, expect):
+    x = torch.empty(3, d, dtype=torch.float32 if elem == 4 else torch.bfloat16)
+    assert K._vec_width(d, x, widths) == expect
+    # a view that starts off the 16-byte grid takes narrower loads
+    assert K._vec_width(d, x.view(-1)[1:].view(-1)[: d], widths) == 1
+
+
+def test_build_needs_nvcc_and_hashes_source(tmp_path, monkeypatch):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "_build")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build()
+    p1 = _build.library_path()
+    src = tmp_path / "k.cu"
+    src.write_text("// other source\n")
+    monkeypatch.setattr(_build, "SOURCE", src)
+    assert _build.library_path() != p1
+    assert _build.library_path().parent == tmp_path / "_build"
+
+
+def test_graph_to_moves_every_tensor(rng):
+    ei, w = random_edges(rng, 20, 60)
+    g = tcore.build_graph(ei, 20, w).to("meta")
+    for f in dataclasses.fields(g):
+        v = getattr(g, f.name)
+        if isinstance(v, torch.Tensor):
+            assert v.device.type == "meta", f.name
