@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's TeacherGNN training path on one CUDA card.
+"""Drive the PyTorch port's teacher and Cold Brew student paths on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -18,7 +18,19 @@ Phases (any failure exits non-zero; nothing is caught):
    kernel). Each run's records must be finite, its kernel's launch count must
    grow and the plain version's must not. One step at dropout 0 from fixed
    weights through the f32 kernel must match the same step through the plain
-   version within 1e-5 relative, in loss and every gradient.
+   version within 1e-5 relative, in loss and every gradient;
+4. the student: (i) the port's ``main`` with ``--train_which=SEMLP`` at the
+   same shape (teacher with SE on every layer, its [169343, 512] SE table,
+   part 1, part 2), 3 epochs a phase: finite records with the columns
+   ``loss_train, acc_test, head, tail, iso``, and the f32 kernel launched
+   for exactly the teacher's steps plus the SE-table forward, the bf16
+   kernel and the plain version never; (ii) ``latent_neighbor_replace`` on
+   the card against a float64 CPU evaluation of 512 rows of that run's own
+   queries and SE table (the same selected neighbours, output within 1e-5
+   relative), and its time at B = 65,536 rows, the real arxiv batch;
+   (iii) StudentBaseMLP at the arxiv shape and GraphMLP on the Cora
+   stand-in (dense A^r), 3 epochs each, finite, with no SpMM launch;
+   (iv) the step and eval times of each phase.
 
 Prints the kernels' JSON line, then as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -42,6 +54,19 @@ KERNELS = {  # wrapper -> the Pallas kernel it replaces
 }
 SLICE_ARGS = ["--dataset=ogbn-arxiv", "--train_which=TeacherGNN", "--epochs=3",
               "--device=cuda", "--log_every=1"]
+# '111': under the Initial trick every conv takes SE flag [1]
+SEMLP_ARGS = ["--dataset=ogbn-arxiv", "--train_which=SEMLP", "--whetherHasSE=111",
+              "--se_reg=32", "--epochs=3", "--device=cuda", "--spmm_method=auto",
+              "--log_every=1"]
+STUDENT_RUNS = (
+    ["--dataset=ogbn-arxiv", "--train_which=StudentBaseMLP", "--epochs=3",
+     "--device=cuda", "--log_every=1"],
+    ["--dataset=Cora", "--train_which=GraphMLP", "--graphMLP_reg=0.5",
+     "--epochs=3", "--device=cuda", "--log_every=1"],
+)
+STUDENT_COLS = ["loss_train", "acc_test", "head", "tail", "iso"]
+REPLACE_ROWS = 512  # rows held to the float64 evaluation
+REPLACE_BATCH = 64 * 1024  # the arxiv config's batch_size
 
 
 def log(msg: str) -> None:
@@ -104,17 +129,11 @@ def hub_graph():
 
 def slice_data():
     """The slice's config and prepared data, as main builds them."""
-    from gnn_tail_generalization_tpu_torch.config import (
-        apply_arch_configs, build_config)
-    from gnn_tail_generalization_tpu_torch.data.datasets import (
-        load_dataset, prepare)
+    from gnn_tail_generalization_tpu_torch import main as port_main
+    from gnn_tail_generalization_tpu_torch.config import build_config
 
-    cfg = build_config(dataset="ogbn-arxiv", train_which="TeacherGNN")
-    data = load_dataset(cfg, "data")
-    cfg = apply_arch_configs(dataclasses.replace(
-        cfg, N_nodes=data.x.shape[0], num_feats=data.x.shape[1],
-        num_classes=int(data.y.max()) + 1))
-    return cfg, prepare(data, cfg)
+    return port_main.load_prepared(
+        build_config(**port_main.parse_args(SLICE_ARGS)[0]), "data")
 
 
 def step_grads(model, cfg, g, g_last, x, y, mask):
@@ -161,6 +180,122 @@ def check_step_parity(cfg, pd):
         rel = (gk - gp).abs().max().item() / max(gp.abs().max().item(), 1e-30)
         log(f"  grad {k:32s} {tuple(gp.shape)} rel={rel:.3e}")
         assert torch.isfinite(gk).all() and rel <= REL_TOL, (k, rel)
+
+
+def replace_f64(q: np.ndarray, se: np.ndarray, k: int):
+    """The replacement op in float64 on the host, written out plainly:
+    (output, selected indices ordered by score, then index)."""
+    scores = q @ se.T
+    idx = np.empty((len(q), k), np.int64)
+    for i, s in enumerate(scores):
+        kth = np.partition(s, -k)[-k]
+        above = np.flatnonzero(s > kth)
+        sel = np.concatenate([above, np.flatnonzero(s == kth)[:k - len(above)]])
+        idx[i] = sel[np.lexsort((sel, -s[sel]))]
+    top = np.take_along_axis(scores, idx, axis=1)
+    w = np.exp(top - top.max(axis=1, keepdims=True))
+    w /= w.sum(axis=1, keepdims=True)
+    return np.einsum("bk,bkd->bd", w, se[idx]), idx
+
+
+def check_replace(cfg, pd, res, card_name) -> dict:
+    """(ii): latent_neighbor_replace on the card against the float64 host
+    evaluation, on the SEMLP run's own SE table and part-1 queries; and its
+    time at the arxiv batch."""
+    from gnn_tail_generalization_tpu_torch.models.semlp import SEMLPPart1
+    from gnn_tail_generalization_tpu_torch.ops.topk_attention import (
+        latent_neighbor_replace, top_k_lowest_index)
+    from gnn_tail_generalization_tpu_torch.train.loops import collect_teacher_se
+
+    dev = torch.device("cuda")
+    k = cfg.SEMLP_topK_2_replace
+    se = collect_teacher_se(cfg, pd, res.extra["teacher"].best_state_dict,
+                            device=dev)
+    assert se.shape == (pd.n_node, 512), se.shape
+    with torch.device("meta"):
+        part1 = SEMLPPart1(cfg, se.shape[1])
+    part1.load_state_dict(res.extra["part1"].state_dict, assign=True)
+    part1.to(dev).eval()
+    with torch.no_grad():  # part 2's input: alphas[0] * part 1's output
+        q = part1(torch.as_tensor(pd.x[:REPLACE_BATCH], device=dev))
+        q = q * res.state_dict["alphas"][0]
+    rows = torch.randperm(REPLACE_BATCH, generator=torch.Generator().manual_seed(0))
+    qr = q[rows[:REPLACE_ROWS].to(dev)]
+    out = latent_neighbor_replace(qr, se, k)
+    with torch.no_grad():
+        _, idx = top_k_lowest_index(qr @ se.T, k)
+    ref, ref_idx = replace_f64(qr.double().cpu().numpy(),
+                               se.double().cpu().numpy(), k)
+    same = np.array_equal(np.sort(idx.cpu().numpy(), axis=1), np.sort(ref_idx, axis=1))
+    abs_err = float(np.abs(out.double().cpu().numpy() - ref).max())
+    rel_err = abs_err / max(float(np.abs(ref).max()), 1e-300)
+    ms = median_ms(lambda: latent_neighbor_replace(q, se, k), reps=3, warmup=1)
+    tflop = 2 * REPLACE_BATCH * se.shape[1] * se.shape[0] / 1e12
+    log(f"  latent_neighbor_replace: {REPLACE_ROWS} rows vs float64, same "
+        f"neighbours={same}, max_abs_err={abs_err:.3e} rel_err={rel_err:.3e}; "
+        f"B={REPLACE_BATCH} K={k} table {tuple(se.shape)}: {ms:.3f} ms "
+        f"({tflop:.2f} TFLOP of scores, {tflop / ms * 1e3:.1f} TFLOP/s) "
+        f"[{card_name}]")
+    assert same, "the card selected other neighbours than the float64 evaluation"
+    assert rel_err <= REL_TOL, f"replace rel err {rel_err} > {REL_TOL}"
+    # one row chunk of the op, split into its score matmul and its selection
+    chunk = q[:8192]
+    with torch.no_grad():
+        mm_ms = median_ms(lambda: chunk @ se.T, reps=5, warmup=1)
+        scores = chunk @ se.T
+        sel_ms = median_ms(lambda: top_k_lowest_index(scores, k), reps=5, warmup=1)
+    del scores
+    log(f"  one {tuple(chunk.shape)} chunk: score matmul {mm_ms:.3f} ms "
+        f"({tflop * chunk.shape[0] / REPLACE_BATCH / mm_ms * 1e3:.1f} "
+        f"TFLOP/s), top-K selection "
+        f"{sel_ms:.3f} ms [{card_name}]")
+    return {"rows": REPLACE_ROWS, "rel_err": rel_err, "batch": REPLACE_BATCH,
+            "ms": ms, "chunk_matmul_ms": mm_ms, "chunk_select_ms": sel_ms}
+
+
+def student_phase(pd, teacher_launches: int, card_name: str) -> dict:
+    """Phase 4: the Cold Brew student on the card."""
+    from gnn_tail_generalization_tpu_torch import main as port_main
+    from gnn_tail_generalization_tpu_torch.config import build_config
+    from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
+
+    log("  (i) SEMLP through the port's main")
+    K.reset_launch_counts()
+    res = port_main.main(SEMLP_ARGS)[0]
+    counts = dict(K.LAUNCHES)
+    log(f"  launch counts over the SEMLP run: {counts}")
+    cfg = port_main.fitted_to(
+        build_config(**port_main.parse_args(SEMLP_ARGS)[0]), pd)
+    # the teacher's steps as in phase 3, plus the SE-table forward
+    expect = {"spmm_csr_f32": teacher_launches + cfg.num_layers,
+              "spmm_csr_bf16": 0, "spmm_csr_plain": 0}
+    assert counts == expect, f"SEMLP launched {counts}, expected {expect}"
+    phases = {"teacher": res.extra["teacher"], "part1": res.extra["part1"],
+              "part2": res}
+    assert res.columns == STUDENT_COLS, res.columns
+    for name, r in phases.items():
+        assert r.records.shape[0] == 3 and np.isfinite(r.records).all(), (name, r.records)
+
+    log("  (ii) latent_neighbor_replace on the card")
+    replace = check_replace(cfg, pd, res, card_name)
+
+    log("  (iii) StudentBaseMLP (arxiv shape) and GraphMLP (Cora stand-in)")
+    for argv in STUDENT_RUNS:
+        K.reset_launch_counts()
+        r = port_main.main(argv)[0]
+        counts = dict(K.LAUNCHES)
+        log(f"  {argv[1]}: launch counts {counts}, step_ms {r.step_ms}, "
+            f"eval_ms {r.eval_ms} [{card_name}]")
+        assert not any(counts.values()), f"{argv[1]} launched {counts}"
+        assert r.columns == STUDENT_COLS and r.records.shape == (3, 5), r.columns
+        assert np.isfinite(r.records).all(), r.records
+
+    log("  (iv) SEMLP times per epoch")
+    times = {name: r.step_ms for name, r in phases.items()}
+    times["part2_eval"] = res.eval_ms
+    for name, t in times.items():
+        log(f"  {name:10s} ms {[round(v, 3) for v in t]} [{card_name}]")
+    return {"step_ms": times, "replace": replace}
 
 
 def main() -> int:
@@ -245,6 +380,9 @@ def main() -> int:
     log("  one-step parity, f32 kernel vs plain version (dropout 0):")
     check_step_parity(cfg, pd)
 
+    log("== phase 4: the Cold Brew student")
+    student = student_phase(pd, launches["spmm_csr_f32"], card_name)
+
     kernels = [{"name": name, "route": "cuda", "source": SOURCE,
                 "replaces": KERNELS[name], "launches": launches[name],
                 "max_abs_err": stats[name]["max_abs_err"],
@@ -252,7 +390,7 @@ def main() -> int:
                 "ms": stats[name]["ms"], "plain_ms": stats[name]["plain_ms"]}
                for name in KERNELS]
     print(json.dumps({"kernels": kernels, "step_ms": step_ms,
-                      "card": card_name}))
+                      "student": student, "card": card_name}))
     print(card_name)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

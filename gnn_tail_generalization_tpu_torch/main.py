@@ -1,29 +1,26 @@
 """Experiment CLI of the PyTorch port.
 
 Takes the config flags of the root ``main.py`` (every field of ``Config``)
-and prints the same per-epoch and mean ± std lines. The port trains the
-TeacherGNN so far.
+and prints the same per-epoch and mean ± std lines. ``--train_which`` is
+TeacherGNN, or one of the Cold Brew students: SEMLP (teacher, SE table,
+part 1, part 2), StudentBaseMLP or GraphMLP.
 
 Usage:
   python -m gnn_tail_generalization_tpu_torch.main --dataset=ogbn-arxiv \
-      --train_which=TeacherGNN --epochs=3 --device=cuda
+      --train_which=SEMLP --whetherHasSE=111 --epochs=3 --device=cuda
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .config import Config, apply_arch_configs, build_config
-from .data.datasets import load_dataset, prepare
-from .train.loops import TrainResult, train_teacher
-
-_NOT_PORTED = {
-    "SEMLP": "A6", "StudentBaseMLP": "A6", "GraphMLP": "A6", "LP": "A7",
-}
+from .data.datasets import PreparedData, load_dataset, prepare
+from .train.loops import TrainResult, run_experiment
 
 
 def parse_args(argv: Optional[List[str]] = None):
@@ -74,11 +71,25 @@ def _check_supported(cfg: Config, overrides: dict, ns) -> None:
     if cfg.exp_mode == "I2_GTL" and cfg.task != "nodeC":
         raise NotImplementedError(
             "link-prediction transfer is not ported yet (ROADMAP A9)")
-    if cfg.train_which != "TeacherGNN":
-        item = _NOT_PORTED.get(cfg.train_which, "A6-A10")
-        raise NotImplementedError(
-            f"--train_which={cfg.train_which} is not ported yet "
-            f"(ROADMAP {item})")
+
+
+def fitted_to(cfg: Config, data) -> Config:
+    """``cfg`` with the node, feature and class counts of ``data`` (a
+    ``NodeData`` or ``PreparedData``)."""
+    return apply_arch_configs(dataclasses.replace(
+        cfg, N_nodes=data.x.shape[0], num_feats=data.x.shape[1],
+        num_classes=int(data.y.max()) + 1))
+
+
+def load_prepared(cfg: Config, data_root: str) -> Tuple[Config, PreparedData]:
+    """The dataset prepared for ``cfg``, and ``cfg`` fitted to the synthetic
+    stand-in's shapes when no raw files were found."""
+    data = load_dataset(cfg, data_root)
+    if data.name.startswith("synthetic"):
+        print(f"NOTE: no raw dataset files found under {data_root!r}; "
+              f"running on a synthetic stand-in with the preset shapes.")
+        cfg = fitted_to(cfg, data)
+    return cfg, prepare(data, cfg)
 
 
 def main(argv: Optional[List[str]] = None) -> List[TrainResult]:
@@ -95,19 +106,12 @@ def main(argv: Optional[List[str]] = None) -> List[TrainResult]:
     print(f"Configs:\n  dataset={cfg.dataset} train_which={cfg.train_which} "
           f"type_trick={cfg.type_trick} num_layers={cfg.num_layers} "
           f"dim_hidden={cfg.dim_hidden}")
-    data = load_dataset(cfg, ns.data_root)
-    if data.name.startswith("synthetic"):
-        print(f"NOTE: no raw dataset files found under {ns.data_root!r}; "
-              f"running on a synthetic stand-in with the preset shapes.")
-        cfg = apply_arch_configs(dataclasses.replace(
-            cfg, N_nodes=data.x.shape[0], num_feats=data.x.shape[1],
-            num_classes=int(data.y.max()) + 1))
-    pd = prepare(data, cfg)
+    cfg, pd = load_prepared(cfg, ns.data_root)
 
     results = []
     for seed in range(cfg.N_exp):
-        res = train_teacher(cfg, pd, seed=cfg.random_seed + seed,
-                            log_every=ns.log_every, device=device)
+        res = run_experiment(cfg, pd, seed=cfg.random_seed + seed,
+                             log_every=ns.log_every, device=device)
         results.append(res)
         print(f"seed {seed}: " + " ".join(
             f"{c}={res.records[-1, i]:.2f}" for i, c in enumerate(res.columns)))

@@ -6,8 +6,8 @@ reference's ``GNN_model/GNN_normalizations.py:9-65``):
   has_proj2class);
 - optional featureless mode: x * 0 (change_to_featureless) or learnable input
   embeddings of dim_learnable_input;
-- the proj2class head needs ``nn/mlp.py``, which is not ported yet
-  (ROADMAP A3, mlp/proj2class), so ``has_proj2class`` raises.
+- the optional proj2class head: ``MLP(TeacherGNN.neurons_proj2class)`` from
+  commonEmb to the classes (``has_proj2class``).
 """
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ from torch import nn
 from ..config import Config
 from ..graph.core import Graph
 from ..nn.backbone import TricksCombBackbone
+from ..nn.mlp import MLP
 
 
 def backbone_from_config(cfg: Config, generator: Optional[torch.Generator]
@@ -42,10 +43,6 @@ def backbone_from_config(cfg: Config, generator: Optional[torch.Generator]
 class TeacherGNN(nn.Module):
     def __init__(self, cfg: Config, generator: Optional[torch.Generator] = None):
         super().__init__()
-        if cfg.has_proj2class:
-            raise NotImplementedError(
-                "has_proj2class: the proj2class MLP is not ported yet "
-                "(ROADMAP A3, mlp/proj2class)")
         self.cfg = cfg
         self.backbone = backbone_from_config(cfg, generator)
         if cfg.dim_learnable_input > 0:
@@ -54,16 +51,22 @@ class TeacherGNN(nn.Module):
             nn.init.normal_(self.input_embs, std=0.001, generator=generator)
         else:
             self.register_parameter("input_embs", None)
+        self.proj2class = (MLP(cfg.TeacherGNN.neurons_proj2class,
+                               generator=generator)
+                           if cfg.has_proj2class else None)
 
     def forward(self, g: Graph, x: torch.Tensor, *,
                 generator: Optional[torch.Generator] = None,
                 want_les: bool = False, g_last: Optional[Graph] = None):
         """Returns (commonEmb, emb4classi_full, se_reg_all, les). With no
-        proj2class head the classifier view is commonEmb itself."""
+        proj2class head the classifier view is commonEmb itself. Train mode
+        draws dropout from ``generator``."""
         if self.cfg.TeacherGNN.change_to_featureless:
             x = x * 0
         if self.input_embs is not None:
             x = self.input_embs
         common, se_reg_all, les = self.backbone(
             g, x, generator=generator, want_les=want_les, g_last=g_last)
-        return common, common, se_reg_all, les
+        classi = (common if self.proj2class is None
+                  else self.proj2class(common, generator=generator))
+        return common, classi, se_reg_all, les

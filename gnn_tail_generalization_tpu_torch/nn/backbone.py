@@ -29,25 +29,9 @@ from torch import nn
 from ..graph.core import Graph
 from .dropout import dropout
 from .gcn import GCNConv
+from .mlp import dense_layer
 from .norms import norm_applies
 from .residual import initial_connection, residual_connection
-
-# flax's lecun_normal: a normal truncated at two standard deviations, scaled
-# so that the truncated distribution has variance 1 / fan_in
-_TRUNC_STD = 0.87962566103423978
-
-
-def dense_layer(in_feats: int, out_feats: int,
-                generator: Optional[torch.Generator]) -> nn.Linear:
-    """``nn.Linear`` initialised like flax ``nn.Dense``: lecun-normal weight,
-    zero bias."""
-    lin = nn.Linear(in_feats, out_feats)
-    std = (1.0 / in_feats) ** 0.5 / _TRUNC_STD
-    nn.init.trunc_normal_(lin.weight, std=std, a=-2 * std, b=2 * std,
-                          generator=generator)
-    nn.init.zeros_(lin.bias)
-    return lin
-
 
 class TricksCombBackbone(nn.Module):
     def __init__(self, num_feats: int, num_classes: int, dim_hidden: int,

@@ -12,10 +12,10 @@ import torch
 
 def masked_accuracy(logits: torch.Tensor, y: torch.Tensor,
                     mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """argmax accuracy, optionally over a boolean mask."""
+    """argmax accuracy, optionally over a boolean mask; 0 over no rows."""
     correct = (logits.argmax(dim=1) == y).float()
     if mask is None:
-        return correct.mean()
+        return correct.sum() / max(correct.numel(), 1)
     m = mask.float()
     return (correct * m).sum() / m.sum().clamp(min=1.0)
 

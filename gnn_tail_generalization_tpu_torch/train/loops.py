@@ -1,28 +1,41 @@
-"""TeacherGNN training loop.
+"""Training loops: the TeacherGNN, the two SEMLP phases, and the students.
 
-The port of ``train_teacher`` and its helpers in
-``gnn_tail_generalization_tpu/train/loops.py`` (the reference's
-``trainer_node_classification.py``: train_teacherGNN 303-372 and
-run_trainSet/run_testSet 382-495): full-graph epochs, masked NLL +
-se_reg * sum ||E^l||_F, Adam, and an eval-mode full forward with the
-head/tail/iso breakdown after every step.
+The port of ``gnn_tail_generalization_tpu/train/loops.py`` (the reference's
+``trainer_node_classification.py``):
+
+- ``train_teacher`` (train_teacherGNN 303-372, run_trainSet/run_testSet
+  382-495): full-graph epochs, masked NLL + se_reg * sum ||E^l||_F, Adam,
+  and an eval-mode full forward with the head/tail/iso breakdown after every
+  step; the best-by-test weights are kept when training for SEMLP;
+- ``collect_teacher_se`` + ``train_semlp_part1`` (train_seMLP_part1 66-124):
+  the teacher's SE table as the target of an MSE regression on uniform
+  with-replacement batches of train nodes;
+- ``train_semlp_part2`` (train_seMLP_part2 126-207): cross-entropy on random
+  batches (+ graphMLP_reg * NContrast for GraphMLP), head/tail/iso eval as
+  forwards on the index subsets;
+- ``run_experiment``: the dispatch on ``train_which`` (10-30).
 
 Each epoch is one eager step. The JAX package's epoch-block scans and
 vmapped multi-seed training exist to amortise TPU dispatch and are not
-carried over; main.py loops over seeds.
+carried over; main.py loops over seeds. Random batches and dropout are drawn
+from one ``torch.Generator`` per phase, seeded from ``seed``.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Dict, List, Mapping, Optional
 
 import numpy as np
+import scipy.sparse as sp
 import torch
+import torch.nn.functional as F
 
 from ..config import Config
 from ..data.datasets import PreparedData
-from ..graph.core import Graph, loss_masked_view
+from ..graph.core import Graph, add_self_loops, loss_masked_view, remove_self_loops
+from ..models.semlp import GraphMLP, SEMLPPart1, SEMLPPart2, neighbor_contrastive_loss
 from ..models.teacher import TeacherGNN
 from ..nn.norms import norm_applies
 from .evalutil import headtail_accuracies, masked_accuracy
@@ -35,6 +48,11 @@ class TrainResult:
     records: np.ndarray  # [epochs, len(columns)]
     state_dict: Dict[str, torch.Tensor]  # final parameters
     step_ms: List[float]  # per epoch: forward, backward and Adam, synchronised
+    # the teacher's best-by-acc_test parameters when training for SEMLP,
+    # else the final ones
+    best_state_dict: Optional[Dict[str, torch.Tensor]] = None
+    eval_ms: List[float] = field(default_factory=list)  # part 2: head/tail/iso
+    extra: Dict[str, Any] = field(default_factory=dict)  # SEMLP: earlier phases
 
 
 def _nll_masked(logits: torch.Tensor, y: torch.Tensor,
@@ -118,6 +136,9 @@ def train_teacher(
         cols += ["head", "tail"] + (["iso"] if zero is not None else [])
     records = np.zeros((epochs, len(cols)), np.float64)
     step_ms: List[float] = []
+    keep_best = "SEMLP" in cfg.train_which
+    acc_i = cols.index("acc_test")
+    best_acc, best_state = -1.0, None
 
     for epoch in range(epochs):
         _sync(device)
@@ -150,13 +171,329 @@ def train_teacher(
             # one device->host copy per epoch
             records[epoch] = torch.stack(
                 [metrics[c].float() for c in cols]).cpu().numpy()
+        if records[epoch, acc_i] > best_acc:
+            best_acc = records[epoch, acc_i]
+            if keep_best:  # state_dict() holds live tensors that Adam updates
+                best_state = {k: v.detach().clone()
+                              for k, v in model.state_dict().items()}
         if log_every and epoch % log_every == 0:
             print(f"Ep{epoch:03d} " + " ".join(
                 f"{c}={records[epoch, i]:.2f}" for i, c in enumerate(cols)))
 
+    final = {k: v.detach() for k, v in model.state_dict().items()}
     return TrainResult(
         columns=cols,
         records=records,
-        state_dict={k: v.detach() for k, v in model.state_dict().items()},
+        state_dict=final,
         step_ms=step_ms,
+        best_state_dict=best_state if best_state is not None else final,
     )
+
+
+def _on_device(module: torch.nn.Module, state: Mapping[str, torch.Tensor],
+               device: torch.device) -> torch.nn.Module:
+    """``module`` (built on the meta device) holding ``state``, on
+    ``device``, with no gradient."""
+    module.load_state_dict(state, assign=True)
+    return module.to(device).requires_grad_(False)
+
+
+def collect_teacher_se(cfg: Config, data: PreparedData,
+                       teacher_state: Mapping[str, torch.Tensor], *,
+                       device="cpu",
+                       generator: Optional[torch.Generator] = None
+                       ) -> torch.Tensor:
+    """The teacher's SE table [N, se_dim]: the concatenation of every
+    layer's pre-relu output on the full graph (trainer:87, GCN.py:148-150).
+    An eval-mode forward by default; in train mode, with dropout drawn from
+    ``generator``, when ``cfg.bug_compat_part1_target_dropout`` is set (the
+    reference's single dropout sample as the part-1 target)."""
+    device = torch.device(device)
+    with torch.device("meta"):
+        model = TeacherGNN(cfg)
+    model = _on_device(model, teacher_state, device)
+    model.train(bool(cfg.bug_compat_part1_target_dropout))
+    with torch.no_grad():
+        _, _, _, les = model(data.graph.to(device),
+                             torch.as_tensor(data.x).to(device),
+                             generator=generator, want_les=True)
+    return les
+
+
+def _sample(idx: torch.Tensor, bsz: int, generator: torch.Generator
+            ) -> torch.Tensor:
+    """``bsz`` entries of ``idx``, uniform with replacement
+    (np.random.choice(idx, bsz) in the reference, main.py:93); none when
+    ``idx`` is empty (a split without test nodes, e.g. the WebKB stand-ins)."""
+    if idx.numel() == 0:
+        return idx
+    pick = torch.randint(0, idx.numel(), (bsz,), generator=generator,
+                         device=idx.device)
+    return idx[pick]
+
+
+def train_semlp_part1(
+    cfg: Config,
+    data: PreparedData,
+    teacher_se: torch.Tensor,
+    seed: int = 0,
+    epochs: Optional[int] = None,
+    log_every: int = 0,
+    *,
+    device="cpu",
+) -> TrainResult:
+    """SEMLP part 1: regress the teacher's SE rows from the node features,
+    MSE on ``min(batch_size, n_train)`` train nodes per step; ``loss_test``
+    is the MSE on a batch drawn from the test nodes after the step."""
+    epochs = cfg.epochs if epochs is None else epochs
+    device = torch.device(device)
+    se = teacher_se.to(device)
+    x = torch.as_tensor(data.x).to(device)
+    train_idx = torch.as_tensor(data.train_idx).to(device)
+    test_idx = torch.as_tensor(data.test_idx).to(device)
+    bsz = min(cfg.batch_size, len(data.train_idx))  # MLP_model:61-63
+
+    model = SEMLPPart1(cfg, se_dim=se.shape[1],
+                       generator=torch.Generator().manual_seed(seed + 1))
+    model.to(device)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    opt = make_optimizer(cfg, model.parameters())
+
+    cols = ["loss_train", "loss_test"]
+    records = np.zeros((epochs, len(cols)), np.float64)
+    step_ms: List[float] = []
+    for epoch in range(epochs):
+        _sync(device)
+        t0 = time.perf_counter()
+        model.train()
+        opt.zero_grad(set_to_none=True)
+        bidx = _sample(train_idx, bsz, gen)
+        loss = F.mse_loss(model(x[bidx], generator=gen), se[bidx])
+        loss.backward()
+        opt.step()
+        _sync(device)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+
+        model.eval()
+        with torch.no_grad():
+            tidx = _sample(test_idx, bsz, gen)
+            err = (model(x[tidx]) - se[tidx]) ** 2
+            loss_test = err.sum() / max(err.numel(), 1)  # 0 over no nodes
+            records[epoch] = torch.stack([loss.detach(), loss_test]).cpu().numpy()
+        if log_every and epoch % log_every == 0:
+            print(f"p1 Ep{epoch:03d} train/test mse "
+                  f"{records[epoch, 0]:.4f}/{records[epoch, 1]:.4f}")
+    return TrainResult(
+        columns=cols, records=records,
+        state_dict={k: v.detach() for k, v in model.state_dict().items()},
+        step_ms=step_ms)
+
+
+# ---------------------------------------------------------------------------
+# GraphMLP's adjacency power (host side, numpy/scipy)
+# ---------------------------------------------------------------------------
+
+
+def _sparse_adj_pow(data: PreparedData, r: int) -> sp.csr_matrix:
+    """GraphMLP's A_tilde^r as a scipy CSR (graphUtils.normalize_adj +
+    sparse_power, utils.py:1225-1248): self loops replaced, symmetric degree
+    normalisation, r-th power."""
+    e = add_self_loops(remove_self_loops(data.edge_index), data.n_node)
+    n = data.n_node
+    a = sp.csr_matrix((np.ones(e.shape[1]), (e[0], e[1])), shape=(n, n))
+    d = np.asarray(a.sum(axis=1)).reshape(-1)
+    dinv = sp.diags(d**-0.5)
+    at = (dinv @ a @ dinv).tocsr()
+    out = at
+    for _ in range(r - 1):
+        out = out @ at
+    return out.tocsr().astype(np.float32)
+
+
+def _dense_adj_pow(data: PreparedData, r: int) -> np.ndarray:
+    """Dense [N, N] ``_sparse_adj_pow``, for small graphs."""
+    return np.asarray(_sparse_adj_pow(data, r).todense(), np.float32)
+
+
+def adj_pow_crop(adj_csr: sp.csr_matrix, bidx: np.ndarray) -> np.ndarray:
+    """Dense [B, B] block A^r[bidx][:, bidx] of the sparse power."""
+    return np.asarray(adj_csr[bidx][:, bidx].todense(), np.float32)
+
+
+# ---------------------------------------------------------------------------
+# SEMLP part 2 / StudentBaseMLP / GraphMLP
+# ---------------------------------------------------------------------------
+
+
+def train_semlp_part2(
+    cfg: Config,
+    data: PreparedData,
+    teacher_se: Optional[torch.Tensor] = None,
+    part1_result: Optional[TrainResult] = None,
+    seed: int = 0,
+    epochs: Optional[int] = None,
+    log_every: int = 0,
+    *,
+    device="cpu",
+) -> TrainResult:
+    """SEMLP part 2, or a student MLP when downgraded (StudentBaseMLP,
+    GraphMLP, ``SEMLP__downgrade_to_MLP``): cross-entropy on random train
+    batches; ``acc_test`` on a batch of test nodes, and head/tail/iso as
+    forwards on those index subsets, each scored over its non-train nodes.
+    ``eval_ms`` of the result holds the head/tail/iso forwards' time per
+    epoch."""
+    epochs = cfg.epochs if epochs is None else epochs
+    device = torch.device(device)
+    x = torch.as_tensor(data.x).to(device)
+    y = torch.as_tensor(data.y).to(device)
+    train_idx = torch.as_tensor(data.train_idx).to(device)
+    test_idx = torch.as_tensor(data.test_idx).to(device)
+    train_mask = torch.as_tensor(data.train_mask).to(device)
+    bsz = min(cfg.batch_size, len(data.train_idx))
+
+    is_graphmlp = cfg.train_which == "GraphMLP"
+    downgraded = cfg.SEMLP__downgrade_to_MLP or cfg.train_which in (
+        "StudentBaseMLP", "GraphMLP")
+    se = part1 = None
+    if not downgraded:
+        if teacher_se is None or part1_result is None:
+            raise ValueError("SEMLP part 2 needs the teacher's SE table and "
+                             "part 1's result")
+        se = teacher_se.to(device)
+        with torch.device("meta"):
+            part1 = SEMLPPart1(cfg, se_dim=se.shape[1])
+        part1 = _on_device(part1, part1_result.state_dict, device)
+
+    adj_dense = adj_sparse = None
+    if is_graphmlp:
+        if data.n_node <= 8192:
+            adj_dense = torch.from_numpy(
+                _dense_adj_pow(data, cfg.graphMLP_r)).to(device)
+        else:
+            # dense [N, N] is out of reach at scale (114 GB at arxiv): crop
+            # [B, B] blocks of the sparse power on the host per step
+            adj_sparse = _sparse_adj_pow(data, cfg.graphMLP_r)
+
+    init_gen = torch.Generator().manual_seed(seed + 2)
+    model = (GraphMLP(cfg, generator=init_gen) if is_graphmlp else
+             SEMLPPart2(cfg, se_dim=0 if se is None else se.shape[1],
+                        generator=init_gen))
+    model.to(device)
+    gen = torch.Generator(device=device).manual_seed(seed + 2)
+    opt = make_optimizer(cfg, model.parameters())
+
+    def forward(idx: torch.Tensor, train: bool):
+        """(logits of the rows ``idx``, the GraphMLP NContrast term or
+        None). The NContrast term enters the train loss only
+        (trainer:156-158)."""
+        model.train(train)
+        g = gen if train else None
+        xb = x[idx]
+        if is_graphmlp:
+            logits, z = model(xb, generator=g)
+            if not train:
+                return logits, None
+            if adj_dense is not None:
+                crop = adj_dense[idx][:, idx]
+            else:
+                crop = torch.from_numpy(
+                    adj_pow_crop(adj_sparse, idx.cpu().numpy())).to(device)
+            return logits, neighbor_contrastive_loss(
+                z, crop, cfg.graphMLP_tau) * cfg.graphMLP_reg
+        p1 = None
+        if part1 is not None:
+            # part 1 runs in train mode during part-2 training (module-level
+            # .train(), trainer:148-152); part 2 detaches its output
+            part1.train(train)
+            with torch.no_grad():
+                p1 = part1(xb, generator=g)
+        return model(xb, p1, se, generator=g), None
+
+    def subset_test_acc(idx: torch.Tensor) -> torch.Tensor:
+        """Forward on the subset, accuracy over its non-train nodes
+        (trainer:173-187, eval_headtail__traintest_v2)."""
+        logits, _ = forward(idx, train=False)
+        m = ~train_mask[idx]
+        correct = ((logits.argmax(dim=1) == y[idx]) & m).sum()
+        return correct / m.sum().clamp(min=1) * 100.0
+
+    s = data.splits
+    want_ht = cfg.want_headtail and s is not None
+    subsets = {}
+    if want_ht:
+        subsets = {"head": s.large_deg_idx, "tail": s.small_deg_idx}
+        if s.zero_deg_idx is not None:
+            subsets["iso"] = s.zero_deg_idx
+        subsets = {k: torch.as_tensor(v).to(device) for k, v in subsets.items()}
+    cols = ["loss_train", "acc_test"] + list(subsets)
+    records = np.zeros((epochs, len(cols)), np.float64)
+    step_ms: List[float] = []
+    eval_ms: List[float] = []
+
+    for epoch in range(epochs):
+        _sync(device)
+        t0 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        bidx = _sample(train_idx, bsz, gen)
+        logits, aux = forward(bidx, train=True)
+        loss = F.cross_entropy(logits, y[bidx])
+        if aux is not None:
+            loss = loss + aux
+        loss.backward()
+        opt.step()
+        _sync(device)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+
+        with torch.no_grad():
+            tidx = _sample(test_idx, bsz, gen)
+            logits_t, _ = forward(tidx, train=False)
+            metrics = {"loss_train": loss.detach(),
+                       "acc_test": masked_accuracy(logits_t, y[tidx]) * 100.0}
+            _sync(device)
+            t0 = time.perf_counter()
+            for name, idx in subsets.items():
+                metrics[name] = subset_test_acc(idx)
+            _sync(device)
+            eval_ms.append((time.perf_counter() - t0) * 1e3)
+            records[epoch] = torch.stack(
+                [metrics[c].float() for c in cols]).cpu().numpy()
+        if log_every and epoch % log_every == 0:
+            print(f"p2 Ep{epoch:03d} " + " ".join(
+                f"{c}={records[epoch, i]:.2f}" for i, c in enumerate(cols)))
+    return TrainResult(
+        columns=cols, records=records,
+        state_dict={k: v.detach() for k, v in model.state_dict().items()},
+        step_ms=step_ms, eval_ms=eval_ms)
+
+
+def run_experiment(cfg: Config, data: PreparedData, seed: int = 0,
+                   epochs: Optional[int] = None, log_every: int = 0, *,
+                   device="cpu") -> TrainResult:
+    """The dispatch on ``cfg.train_which`` (trainer_node_classification.py:
+    10-30). SEMLP: teacher (best-by-test weights kept) -> SE table -> part 1
+    -> part 2; the result is part 2's, with the teacher's and part 1's
+    results under ``extra``."""
+    tw = cfg.train_which
+    if tw == "TeacherGNN":
+        return train_teacher(cfg, data, seed, epochs, log_every, device=device)
+    if tw == "LP":
+        raise NotImplementedError(
+            "--train_which=LP: label propagation is not ported yet (ROADMAP A7)")
+    if tw in ("StudentBaseMLP", "GraphMLP"):
+        cfg = dataclasses.replace(cfg, SEMLP__downgrade_to_MLP=True)
+    elif tw != "SEMLP":
+        raise ValueError(f"unknown train_which {tw!r}")
+    if cfg.SEMLP__downgrade_to_MLP:
+        return train_semlp_part2(cfg, data, seed=seed, epochs=epochs,
+                                 log_every=log_every, device=device)
+    teacher = train_teacher(cfg, data, seed, epochs, log_every, device=device)
+    gen = None
+    if cfg.bug_compat_part1_target_dropout:
+        gen = torch.Generator(device=device).manual_seed(seed + 3)
+    se = collect_teacher_se(cfg, data, teacher.best_state_dict, device=device,
+                            generator=gen)
+    p1 = train_semlp_part1(cfg, data, se, seed, epochs, log_every, device=device)
+    p2 = train_semlp_part2(cfg, data, se, p1, seed, epochs, log_every,
+                           device=device)
+    p2.extra.update(teacher=teacher, part1=p1)
+    return p2

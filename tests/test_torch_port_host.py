@@ -185,13 +185,18 @@ for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
 from gnn_tail_generalization_tpu_torch.config import build_config
 from gnn_tail_generalization_tpu_torch.data.synthetic import synthetic_planetoid
 from gnn_tail_generalization_tpu_torch.data.datasets import prepare
-from gnn_tail_generalization_tpu_torch.train.loops import train_teacher
+from gnn_tail_generalization_tpu_torch.train.loops import run_experiment
+import gnn_tail_generalization_tpu_torch.models.semlp
+import gnn_tail_generalization_tpu_torch.nn.mlp
+import gnn_tail_generalization_tpu_torch.ops.topk_attention
 data = synthetic_planetoid(n_node=80, n_feat=12, n_class=3, seed=0)
-cfg = build_config(dataset="", train_which="TeacherGNN", N_nodes=80,
-                   num_feats=12, num_classes=3, dim_hidden=8,
-                   type_trick="InitialBatchNorm", whetherHasSE="111")
-res = train_teacher(cfg, prepare(data, cfg, spmm_dense_threshold=10), epochs=1)
-assert np.isfinite(res.records).all(), res.records
+for tw in ("TeacherGNN", "SEMLP", "GraphMLP"):
+    cfg = build_config(dataset="", train_which=tw, N_nodes=80,
+                       num_feats=12, num_classes=3, dim_hidden=8,
+                       type_trick="InitialBatchNorm", whetherHasSE="111")
+    res = run_experiment(cfg, prepare(data, cfg, spmm_dense_threshold=10),
+                         epochs=1)
+    assert np.isfinite(res.records).all(), (tw, res.records)
 assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 print("NO_JAX_OK")
 """

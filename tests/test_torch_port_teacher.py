@@ -141,12 +141,12 @@ def test_main_cli_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--train_which=SEMLP"], "A6"), (["--train_which=LP"], "A7"),
+    (["--exp_mode=I2_GTL"], "A8"), (["--train_which=LP"], "A7"),
     (["--n_devices=2"], "A12"), (["--hier_mesh=2x4"], "A12"),
     (["--prog=1-0-2"], "A11"), (["--type_trick=BatchNorm"], "norm"),
     (["--type_trick=Jumping"], "DenseConnection"),
     (["--apply_graph_dropout=1"], "graph dropout"),
-    (["--has_proj2class=1"], "proj2class")])
+    (["--records_path=/tmp/r"], "A11")])
 def test_main_raises_for_unported_parts(argv, match):
     with pytest.raises(NotImplementedError, match=match):
         tmain.main(["--dataset=TEXAS", "--epochs=1", "--device=cpu",
