@@ -1,4 +1,5 @@
-"""Drive the PyTorch port's teacher and Cold Brew student paths on one CUDA card.
+"""Drive the PyTorch port's teacher, trick zoo, Cold Brew student and label
+propagation paths on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -30,9 +31,28 @@ Phases (any failure exits non-zero; nothing is caught):
    relative), and its time at B = 65,536 rows, the real arxiv batch;
    (iii) StudentBaseMLP at the arxiv shape and GraphMLP on the Cora
    stand-in (dense A^r), 3 epochs each, finite, with no SpMM launch;
-   (iv) the step and eval times of each phase.
+   (iv) the step and eval times of each phase;
+5. the trick zoo: the port's ``main`` at the arxiv shape with
+   ``--force_set_to_best_config=0``, 3 epochs, for BatchNorm, GroupNorm (the
+   arxiv preset: 10 groups, a [169343, 2560] block per layer), PairNorm,
+   DenseNoNorm with attention, Jumping, and graph dropout (DropEdge, LADIES,
+   FastGCN under ``pallas_bf16``). Finite records, and launch counts as the
+   rule predicts: per epoch 2 SpMMs a layer for the train step (on masked,
+   plan-less graphs under graph dropout: the f32 kernel) and 1 a layer for
+   the eval forward (the full graph: the kernel of the method). One step at
+   dropout 0 through the f32 kernel against the plain version (1e-5
+   relative, loss and every gradient) for GroupNorm and LADIES, both drawing
+   the same masks;
+6. propagation: ``--train_which=LP`` through ``main`` (a finite JSON line,
+   the f32 kernel launched once per propagation), its [169343, 40]
+   propagation against the plain version (1e-5 relative); then
+   ``run_cs_pipeline`` with diffusion features and 5 mid-step epochs (the
+   f32 kernel launched num_propagations1 + num_propagations2 times), and
+   ``lp_step`` against the plain version (1e-5 relative); the ms of both
+   and of one propagation.
 
-Prints the kernels' JSON line, then as the last line
+Prints the kernels' JSON line (launches summed over every phase), then as
+the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 import copy
@@ -67,6 +87,25 @@ STUDENT_RUNS = (
 STUDENT_COLS = ["loss_train", "acc_test", "head", "tail", "iso"]
 REPLACE_ROWS = 512  # rows held to the float64 evaluation
 REPLACE_BATCH = 64 * 1024  # the arxiv config's batch_size
+TRICK_BASE = ["--dataset=ogbn-arxiv", "--train_which=TeacherGNN",
+              "--force_set_to_best_config=0", "--epochs=3", "--device=cuda",
+              "--log_every=1"]
+TRICK_RUNS = {
+    "BatchNorm": ["--type_trick=BatchNorm"],
+    "GroupNorm": ["--type_trick=GroupNorm"],
+    "PairNorm": ["--type_trick=PairNorm"],
+    "DenseNoNorm-attention": ["--type_trick=DenseNoNorm", "--layer_agg=attention"],
+    "Jumping": ["--type_trick=Jumping"],
+    "DropEdge": ["--type_trick=DropEdge", "--apply_graph_dropout=1"],
+    "LADIES": ["--type_trick=LADIES", "--apply_graph_dropout=1",
+               "--layerwise_dropout=1"],
+    "FastGCN-bf16": ["--type_trick=FastGCN", "--apply_graph_dropout=1",
+                     "--spmm_method=pallas_bf16"],
+}
+# run -> whether the parity bound takes the sum-order floor (check_step_parity)
+TRICK_PARITY = {"GroupNorm": True, "LADIES": False}
+LP_ARGS = ["--dataset=ogbn-arxiv", "--train_which=LP", "--device=cuda"]
+CS_EPOCHS = 5
 
 
 def log(msg: str) -> None:
@@ -137,12 +176,15 @@ def slice_data():
 
 
 def step_grads(model, cfg, g, g_last, x, y, mask):
-    """Loss and gradients of one train-mode step (no optimizer update)."""
+    """Loss and gradients of one train-mode step (no optimizer update);
+    graph-dropout masks, where the config draws them, from a generator
+    seeded 0."""
     from gnn_tail_generalization_tpu_torch.train.loops import _nll_masked
 
     model.train()
     model.zero_grad(set_to_none=True)
-    _, classi, se_reg, _ = model(g, x, g_last=g_last)
+    graph_gen = torch.Generator(device=x.device).manual_seed(0)
+    _, classi, se_reg, _ = model(g, x, g_last=g_last, graph_generator=graph_gen)
     loss = _nll_masked(classi, y, mask)
     if se_reg is not None:
         loss = loss + cfg.se_reg * se_reg
@@ -151,10 +193,33 @@ def step_grads(model, cfg, g, g_last, x, y, mask):
                          for k, p in model.named_parameters()}
 
 
-def check_step_parity(cfg, pd):
+def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| / max |b|."""
+    return (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+
+
+def reordered_graph(pd):
+    """``pd.graph`` with the edges of every row summed in another order: the
+    same adjacency, built from a permuted edge list."""
+    from gnn_tail_generalization_tpu_torch.graph.core import build_graph
+
+    perm = np.random.default_rng(1).permutation(pd.edge_index.shape[1])
+    return build_graph(pd.edge_index[:, perm], pd.n_node, with_dense=False,
+                       with_plans=pd.graph.has_plans)
+
+
+def check_step_parity(cfg, pd, order_floor: bool = False):
     """One step at dropout 0 from fixed weights: f32 kernel vs the plain
-    version (spmm method 'gather' calls it directly)."""
+    version (spmm method 'gather' calls it directly), within REL_TOL in loss
+    and every gradient. Under graph dropout both steps draw their masks from
+    a generator seeded 0, and the masks must be equal.
+
+    ``order_floor``: also run the plain step on ``reordered_graph`` and hold
+    each quantity to the larger of REL_TOL and 4x the difference that the
+    reordering alone makes — for steps whose f32 result depends on the sum
+    order by more than REL_TOL (GroupNorm's score gradient, PERF.md)."""
     from gnn_tail_generalization_tpu_torch.models.teacher import TeacherGNN
+    from gnn_tail_generalization_tpu_torch.nn import graph_dropout as gd
     from gnn_tail_generalization_tpu_torch.train.loops import final_agg_view
 
     dev = torch.device("cuda")
@@ -170,16 +235,45 @@ def check_step_parity(cfg, pd):
     for m in plain_model.modules():  # same weights, SpMM via the plain version
         if hasattr(m, "spmm_method"):
             m.spmm_method = "gather"
-    loss_k, grads_k = step_grads(kernel_model.to(dev), cfg_k, g, g_last, x, y, mask)
-    loss_p, grads_p = step_grads(plain_model.to(dev), cfg_k, g, g_last, x, y, mask)
+    floor_model = copy.deepcopy(plain_model)
+    drawn, draw = [], gd.per_layer_edge_masks
+
+    def record(*args, **kw):
+        drawn.append(draw(*args, **kw))
+        return drawn[-1]
+
+    gd.per_layer_edge_masks = record
+    try:
+        loss_k, grads_k = step_grads(kernel_model.to(dev), cfg_k, g, g_last,
+                                     x, y, mask)
+        loss_p, grads_p = step_grads(plain_model.to(dev), cfg_k, g, g_last,
+                                     x, y, mask)
+    finally:
+        gd.per_layer_edge_masks = draw
+    if cfg.apply_graph_dropout:
+        assert len(drawn) == 2 and drawn[0] is not None, drawn
+        assert all(torch.equal(a, b) for a, b in zip(*drawn)), "masks differ"
+        kept = [round(m.mean().item(), 4) for m in drawn[0]]
+        log(f"  same masks in both steps; kept edge share per layer {kept}")
+    floors = {}
+    if order_floor:
+        assert g_last is None and not cfg.apply_graph_dropout
+        loss_f, grads_f = step_grads(floor_model.to(dev), cfg_k,
+                                     reordered_graph(pd).to(dev), None, x, y, mask)
+        floors = {k: rel_err(grads_f[k], grads_p[k]) for k in grads_p}
+        floors["loss"] = abs(loss_f - loss_p) / abs(loss_p)
     worst = abs(loss_k - loss_p) / abs(loss_p)
-    log(f"  loss kernel={loss_k:.8f} plain={loss_p:.8f} rel={worst:.3e}")
-    assert worst <= REL_TOL, f"step loss rel diff {worst} > {REL_TOL}"
+    bound = max(REL_TOL, 4 * floors.get("loss", 0.0))
+    log(f"  loss kernel={loss_k:.8f} plain={loss_p:.8f} rel={worst:.3e} "
+        f"(bound {bound:.1e})")
+    assert worst <= bound, f"step loss rel diff {worst} > {bound}"
     for k in grads_p:
-        gk, gp = grads_k[k], grads_p[k]
-        rel = (gk - gp).abs().max().item() / max(gp.abs().max().item(), 1e-30)
-        log(f"  grad {k:32s} {tuple(gp.shape)} rel={rel:.3e}")
-        assert torch.isfinite(gk).all() and rel <= REL_TOL, (k, rel)
+        rel = rel_err(grads_k[k], grads_p[k])
+        bound = max(REL_TOL, 4 * floors.get(k, 0.0))
+        floor = f" order floor={floors[k]:.3e}" if k in floors else ""
+        log(f"  grad {k:32s} {tuple(grads_p[k].shape)} rel={rel:.3e}{floor} "
+            f"(bound {bound:.1e})")
+        assert torch.isfinite(grads_k[k]).all() and rel <= bound, (k, rel, bound)
 
 
 def replace_f64(q: np.ndarray, se: np.ndarray, k: int):
@@ -253,7 +347,8 @@ def check_replace(cfg, pd, res, card_name) -> dict:
             "ms": ms, "chunk_matmul_ms": mm_ms, "chunk_select_ms": sel_ms}
 
 
-def student_phase(pd, teacher_launches: int, card_name: str) -> dict:
+def student_phase(pd, teacher_launches: int, card_name: str,
+                  totals: dict) -> dict:
     """Phase 4: the Cold Brew student on the card."""
     from gnn_tail_generalization_tpu_torch import main as port_main
     from gnn_tail_generalization_tpu_torch.config import build_config
@@ -270,6 +365,8 @@ def student_phase(pd, teacher_launches: int, card_name: str) -> dict:
     expect = {"spmm_csr_f32": teacher_launches + cfg.num_layers,
               "spmm_csr_bf16": 0, "spmm_csr_plain": 0}
     assert counts == expect, f"SEMLP launched {counts}, expected {expect}"
+    for k, v in counts.items():
+        totals[k] += v
     phases = {"teacher": res.extra["teacher"], "part1": res.extra["part1"],
               "part2": res}
     assert res.columns == STUDENT_COLS, res.columns
@@ -296,6 +393,142 @@ def student_phase(pd, teacher_launches: int, card_name: str) -> dict:
     for name, t in times.items():
         log(f"  {name:10s} ms {[round(v, 3) for v in t]} [{card_name}]")
     return {"step_ms": times, "replace": replace}
+
+
+def expected_launches(cfg, epochs: int) -> dict:
+    """The SpMM launches of ``epochs`` teacher epochs: per layer two in the
+    train step (forward and the transposed backward) and one in the eval
+    forward. Masked graphs have no plans, so their SpMMs run the f32 kernel
+    under every method; the eval forward runs on the full graph."""
+    counts = {"spmm_csr_f32": 0, "spmm_csr_bf16": 0, "spmm_csr_plain": 0}
+    bf16 = cfg.spmm_method == "pallas_bf16"
+    train = "spmm_csr_f32" if cfg.apply_graph_dropout or not bf16 else "spmm_csr_bf16"
+    counts[train] += 2 * cfg.num_layers * epochs
+    counts["spmm_csr_bf16" if bf16 else "spmm_csr_f32"] += cfg.num_layers * epochs
+    return counts
+
+
+def trick_phase(pd, card_name: str, totals: dict) -> dict:
+    """Phase 5: the trick zoo through the port's main."""
+    from gnn_tail_generalization_tpu_torch import main as port_main
+    from gnn_tail_generalization_tpu_torch.config import build_config
+    from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
+
+    step_ms = {}
+    for name, extra in TRICK_RUNS.items():
+        argv = TRICK_BASE + extra
+        cfg = port_main.fitted_to(build_config(**port_main.parse_args(argv)[0]), pd)
+        K.reset_launch_counts()
+        res = port_main.main(argv)[0]
+        counts = dict(K.LAUNCHES)
+        expect = expected_launches(cfg, 3)
+        assert counts == expect, f"{name} launched {counts}, expected {expect}"
+        assert res.records.shape[0] == 3 and np.isfinite(res.records).all(), (
+            name, res.records)
+        for k, v in counts.items():
+            totals[k] += v
+        step_ms[name] = res.step_ms
+        log(f"  {name:22s} launches {counts} step_ms "
+            f"{[round(v, 3) for v in res.step_ms]} [{card_name}]")
+    for name, order_floor in TRICK_PARITY.items():
+        argv = TRICK_BASE + TRICK_RUNS[name]
+        cfg = port_main.fitted_to(build_config(**port_main.parse_args(argv)[0]), pd)
+        log(f"  one-step parity, {name}, f32 kernel vs plain version (dropout 0):")
+        check_step_parity(cfg, pd, order_floor)
+    return step_ms
+
+
+def propagation_phase(pd, card_name: str, totals: dict) -> dict:
+    """Phase 6: --train_which=LP through main, and C&S."""
+    from gnn_tail_generalization_tpu_torch import main as port_main
+    from gnn_tail_generalization_tpu_torch.config import build_config
+    from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
+    from gnn_tail_generalization_tpu_torch.ops.spmm import spmm
+    from gnn_tail_generalization_tpu_torch.propagation import correlation as corr
+    from gnn_tail_generalization_tpu_torch.propagation import cs
+
+    dev = torch.device("cuda")
+    log("  (i) --train_which=LP through the port's main")
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = port_main.main(LP_ARGS)[0]
+    lp_s = time.perf_counter() - t0
+    counts = dict(K.LAUNCHES)
+    log(f"  LP result {res}, launch counts {counts}, run {lp_s:.3f} s [{card_name}]")
+    assert set(res) == {"acc_train", "acc_test"} and all(
+        np.isfinite(v) for v in res.values()), res
+    n_prop = 50  # run_pure_lp's
+    assert counts == {"spmm_csr_f32": n_prop, "spmm_csr_bf16": 0,
+                      "spmm_csr_plain": 0}, counts
+    for k, v in counts.items():
+        totals[k] += v
+
+    dad = corr.gen_normalized_adjs(pd.edge_index, pd.n_node, which={"DAD"})[0].to(dev)
+    y = torch.as_tensor(pd.y, device=dev)
+    idx = torch.as_tensor(pd.train_idx, device=dev)
+    nc = int(pd.y.max()) + 1
+
+    def propagate(method):
+        return corr.label_propagation(y, idx, dad, 0.5, n_prop, nc, method)
+
+    out_k, out_p = propagate("auto"), propagate("gather")
+    rel = ((out_k - out_p).abs().max() / out_p.abs().max()).item()
+    assert out_k.shape == (pd.n_node, nc) and torch.isfinite(out_k).all()
+    assert rel <= REL_TOL, f"LP propagation rel err {rel} > {REL_TOL}"
+    lp_ms = median_ms(lambda: propagate("auto"), reps=3, warmup=1)
+    x40 = torch.rand(pd.n_node, nc, device=dev)
+    spmm_ms = median_ms(lambda: spmm(dad, x40))
+    log(f"  LP [{pd.n_node}, {nc}] kernel vs plain rel={rel:.3e}; {n_prop} "
+        f"propagations {lp_ms:.3f} ms, {lp_ms / n_prop:.4f} ms each; one DAD "
+        f"SpMM at d={nc} ({dad.n_edge} edges) {spmm_ms:.4f} ms [{card_name}]")
+
+    log(f"  (ii) run_cs_pipeline, diffusion features, {CS_EPOCHS} mid-step epochs")
+    cfg = port_main.fitted_to(build_config(
+        dataset="ogbn-arxiv", train_which="LP", force_set_to_best_config=False), pd)
+    cfg = dataclasses.replace(cfg, preStep=dataclasses.replace(
+        cfg.preStep, pre_methods="diffusion"))
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    cs_res = cs.run_cs_pipeline(cfg, pd, epochs=CS_EPOCHS, device=dev)
+    torch.cuda.synchronize()
+    cs_s = time.perf_counter() - t0
+    counts = dict(K.LAUNCHES)
+    lp = cfg.lpStep
+    n_cs = lp.num_propagations1 + lp.num_propagations2
+    log(f"  C&S acc_train={cs_res['acc_train']:.2f} acc_test={cs_res['acc_test']:.2f}"
+        f" launches {counts}, pipeline {cs_s:.3f} s [{card_name}]")
+    assert counts == {"spmm_csr_f32": n_cs, "spmm_csr_bf16": 0,
+                      "spmm_csr_plain": 0}, counts
+    assert torch.isfinite(cs_res["out"]).all() and np.isfinite(cs_res["acc_test"])
+    for k, v in counts.items():
+        totals[k] += v
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model_out = torch.softmax(torch.randn(pd.n_node, nc, generator=gen, device=dev), 1)
+
+    def step(method):
+        return cs.lp_step(cfg, pd, model_out, idx, idx, spmm_method=method)
+
+    t0 = time.perf_counter()
+    cs_k = step("auto")
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    cs_p = step("gather")
+    rel_cs = ((cs_k - cs_p).abs().max() / cs_p.abs().max()).item()
+    assert rel_cs <= REL_TOL, f"lp_step rel err {rel_cs} > {REL_TOL}"
+    _, da, ad = (a if a is None else a.to(dev) for a in corr.gen_normalized_adjs(
+        pd.edge_index, pd.n_node, which={lp.A1, lp.A2}))
+    assert (lp.fn, lp.A1, lp.A2) == ("double_correlation_autoscale", "DA", "AD")
+    cs_ms = median_ms(lambda: corr.double_correlation_autoscale(
+        y, model_out, idx, idx, da, lp.alpha1, lp.num_propagations1, ad,
+        lp.alpha2, lp.num_propagations2, nc), reps=3, warmup=1)
+    log(f"  lp_step kernel vs plain rel={rel_cs:.3e}; lp_step {step_s * 1e3:.3f} ms "
+        f"(host adjacency builds included); its {n_cs} propagations on the "
+        f"card {cs_ms:.3f} ms [{card_name}]")
+    return {"lp": res, "lp_rel_err": rel, "lp_ms": lp_ms,
+            "propagation_ms": lp_ms / n_prop, "dad_spmm_ms": spmm_ms,
+            "cs_acc_test": cs_res["acc_test"], "lp_step_rel_err": rel_cs,
+            "cs_propagations_ms": cs_ms, "cs_pipeline_s": cs_s}
 
 
 def main() -> int:
@@ -363,6 +596,7 @@ def main() -> int:
 
     log("== phase 3: the slice through the port's main")
     launches, step_ms = {}, {}
+    totals = {k: 0 for k in K.LAUNCHES}  # launches over every phase
     for method, kernel in (("auto", "spmm_csr_f32"),
                            ("pallas_bf16", "spmm_csr_bf16")):
         K.reset_launch_counts()
@@ -375,22 +609,32 @@ def main() -> int:
         launches[kernel] = counts[kernel]
         rec = results[0].records
         assert rec.shape == (3, 6) and np.isfinite(rec).all(), rec
+        for k, v in counts.items():
+            totals[k] += v
         step_ms[method] = results[0].step_ms
         log(f"  step_ms ({method}) = {step_ms[method]} [{card_name}]")
     log("  one-step parity, f32 kernel vs plain version (dropout 0):")
     check_step_parity(cfg, pd)
 
     log("== phase 4: the Cold Brew student")
-    student = student_phase(pd, launches["spmm_csr_f32"], card_name)
+    student = student_phase(pd, launches["spmm_csr_f32"], card_name, totals)
 
+    log("== phase 5: the trick zoo through the port's main")
+    tricks = trick_phase(pd, card_name, totals)
+
+    log("== phase 6: label propagation and Correct & Smooth")
+    propagation = propagation_phase(pd, card_name, totals)
+
+    assert totals["spmm_csr_plain"] == 0, totals
     kernels = [{"name": name, "route": "cuda", "source": SOURCE,
-                "replaces": KERNELS[name], "launches": launches[name],
+                "replaces": KERNELS[name], "launches": totals[name],
                 "max_abs_err": stats[name]["max_abs_err"],
                 "max_rel_err": stats[name]["max_rel_err"],
                 "ms": stats[name]["ms"], "plain_ms": stats[name]["plain_ms"]}
                for name in KERNELS]
     print(json.dumps({"kernels": kernels, "step_ms": step_ms,
-                      "student": student, "card": card_name}))
+                      "student": student, "trick_step_ms": tricks,
+                      "propagation": propagation, "card": card_name}))
     print(card_name)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

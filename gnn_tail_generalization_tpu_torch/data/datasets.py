@@ -75,8 +75,9 @@ def apply_special_split(data: NodeData, cfg: Config) -> NodeData:
 def prepare(data: NodeData, cfg: Config, *, spmm_dense_threshold: int = 8192
             ) -> PreparedData:
     """Full preprocessing: special split -> edge pipeline -> degree analysis
-    -> isolation crafting -> CSR graph (dense adjacency too for graphs of at
-    most ``spmm_dense_threshold`` nodes)."""
+    -> isolation crafting -> CSR graph (dense adjacency for graphs of at most
+    ``spmm_dense_threshold`` nodes, ``has_plans`` for larger ones, as the JAX
+    package builds its Pallas plans)."""
     n = data.x.shape[0]
     data = apply_special_split(data, cfg)
 
@@ -93,7 +94,8 @@ def prepare(data: NodeData, cfg: Config, *, spmm_dense_threshold: int = 8192
         if cfg.use_special_split:
             e_crafted, _ = analysis.craft_isolation(e, splits.zero_deg_mask)
 
-    g = build_graph(e_crafted, n, dense_threshold=spmm_dense_threshold)
+    g = build_graph(e_crafted, n, dense_threshold=spmm_dense_threshold,
+                    with_plans=n > spmm_dense_threshold)
 
     return PreparedData(
         x=np.asarray(data.x, np.float32),

@@ -30,7 +30,18 @@ class Graph:
     arrays are the same edges grouped by source (the CSR of A^T).
 
     ``dense_adj`` is an optional [N, N] ``A[dst, src] = w`` for small graphs,
-    where one dense matmul beats any sparse kernel (see ops/spmm.py)."""
+    where one dense matmul beats any sparse kernel (see ops/spmm.py).
+
+    ``has_plans`` is true where the JAX package's graph carries Pallas plans
+    (``plans is not None``): ``prepare``'s graph above the dense threshold
+    and its loss-masked view. Masked graphs and the propagation adjacencies
+    have none, and ``pallas_bf16`` computes in f32 on them, as the JAX
+    package does (ops/spmm.py).
+
+    ``t_from_fwd`` maps the transposed CSR's edges to the forward ones
+    (``weight_t == weight[t_from_fwd]``) and ``fwd_from_t`` is its inverse,
+    so a per-edge mask over the forward order also masks the transposed
+    weights (nn/graph_dropout.py)."""
 
     indptr: torch.Tensor  # [N + 1] int32
     indices: torch.Tensor  # [E] int32 source ids
@@ -38,20 +49,24 @@ class Graph:
     indptr_t: torch.Tensor  # [N + 1] int32, rows = source nodes
     indices_t: torch.Tensor  # [E] int32 destination ids
     weight_t: torch.Tensor  # [E] float32
+    t_from_fwd: torch.Tensor  # [E] int64
+    fwd_from_t: torch.Tensor  # [E] int64
     deg_out: torch.Tensor  # [N] float32, includes self loops and duplicates
     deg_in: torch.Tensor  # [N] float32
     dense_adj: Optional[torch.Tensor]
     n_node: int
     n_edge: int
+    has_plans: bool = False
 
     def transpose(self) -> "Graph":
         """The reversed-edge graph."""
         return Graph(
             indptr=self.indptr_t, indices=self.indices_t, weight=self.weight_t,
             indptr_t=self.indptr, indices_t=self.indices, weight_t=self.weight,
+            t_from_fwd=self.fwd_from_t, fwd_from_t=self.t_from_fwd,
             deg_out=self.deg_in, deg_in=self.deg_out,
             dense_adj=None if self.dense_adj is None else self.dense_adj.T,
-            n_node=self.n_node, n_edge=self.n_edge,
+            n_node=self.n_node, n_edge=self.n_edge, has_plans=self.has_plans,
         )
 
     def to(self, device) -> "Graph":
@@ -119,13 +134,24 @@ def degrees(edge_index: np.ndarray, n_node: int):
 
 
 def _csr(rows: np.ndarray, cols: np.ndarray, w: np.ndarray, n_node: int):
-    """(indptr, indices, weight) grouping edges by ``rows``, stable."""
+    """(indptr, indices, weight, order) grouping edges by ``rows``, stable;
+    ``order`` holds the edge-list position of each CSR edge."""
     order = np.argsort(rows, kind="stable")
     indptr = np.zeros(n_node + 1, np.int64)
     np.cumsum(np.bincount(rows, minlength=n_node), out=indptr[1:])
     return (torch.from_numpy(indptr.astype(np.int32)),
             torch.from_numpy(cols[order].astype(np.int32)),
-            torch.from_numpy(np.ascontiguousarray(w[order], np.float32)))
+            torch.from_numpy(np.ascontiguousarray(w[order], np.float32)),
+            order)
+
+
+def edge_rows(indptr: torch.Tensor, n_edge: int) -> torch.Tensor:
+    """[E] int64: the row of each CSR edge (its destination in the forward
+    CSR, its source in the transposed one)."""
+    n_rows = indptr.numel() - 1
+    return torch.repeat_interleave(
+        torch.arange(n_rows, device=indptr.device),
+        (indptr[1:] - indptr[:-1]).long(), output_size=n_edge)
 
 
 def build_graph(
@@ -135,12 +161,14 @@ def build_graph(
     *,
     dense_threshold: int = 8192,
     with_dense: Optional[bool] = None,
+    with_plans: bool = False,
 ) -> Graph:
     """Build the CPU ``Graph`` from a host edge list ``[2, E]`` (row 0 the
     sources). ``edge_weight=None`` means unit weights (the GCN degree
     normalization is applied outside the SpMM, see nn/gcn.py). Graphs with
     ``n_node <= dense_threshold`` also get ``dense_adj``; ``with_dense``
-    overrides that."""
+    overrides that. ``with_plans`` sets ``has_plans``, where the JAX
+    package's ``build_graph`` would build Pallas plans."""
     e = _as_np(edge_index)
     n_edge = e.shape[1]
     if n_edge >= 2**31 or n_node >= 2**31:
@@ -153,8 +181,13 @@ def build_graph(
             raise ValueError(f"edge_weight shape {w.shape} != ({n_edge},)")
 
     deg_out, deg_in = degrees(e, n_node)
-    indptr, indices, weight = _csr(e[1], e[0], w, n_node)
-    indptr_t, indices_t, weight_t = _csr(e[0], e[1], w, n_node)
+    indptr, indices, weight, order_f = _csr(e[1], e[0], w, n_node)
+    indptr_t, indices_t, weight_t, order_t = _csr(e[0], e[1], w, n_node)
+    fwd_pos = np.empty(n_edge, np.int64)  # edge-list position -> CSR position
+    fwd_pos[order_f] = np.arange(n_edge)
+    t_from_fwd = fwd_pos[order_t]
+    fwd_from_t = np.empty(n_edge, np.int64)
+    fwd_from_t[t_from_fwd] = np.arange(n_edge)
 
     if with_dense is None:
         with_dense = n_node <= dense_threshold
@@ -167,8 +200,10 @@ def build_graph(
     return Graph(
         indptr=indptr, indices=indices, weight=weight,
         indptr_t=indptr_t, indices_t=indices_t, weight_t=weight_t,
+        t_from_fwd=torch.from_numpy(t_from_fwd),
+        fwd_from_t=torch.from_numpy(fwd_from_t),
         deg_out=torch.from_numpy(deg_out), deg_in=torch.from_numpy(deg_in),
-        dense_adj=dense, n_node=n_node, n_edge=n_edge,
+        dense_adj=dense, n_node=n_node, n_edge=n_edge, has_plans=with_plans,
     )
 
 
@@ -190,11 +225,13 @@ def loss_masked_view(
     (cross-row norms, edgewise losses, collect_SE) consumes them.
 
     ``edge_index``/``edge_weight`` are the HOST arrays ``g`` was built from.
-    The view carries ``dense_adj`` exactly when ``g`` does."""
+    The view carries ``dense_adj`` and ``has_plans`` exactly when ``g``
+    does."""
     e = _as_np(edge_index)
     m = np.asarray(dst_mask, bool)
     keep = m[e[1]]
     w_sub = None if edge_weight is None else np.asarray(edge_weight)[keep]
     sub = build_graph(e[:, keep], g.n_node, w_sub,
-                      with_dense=g.dense_adj is not None)
+                      with_dense=g.dense_adj is not None,
+                      with_plans=g.has_plans)
     return dataclasses.replace(sub, deg_out=g.deg_out, deg_in=g.deg_in)

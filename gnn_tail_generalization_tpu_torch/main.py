@@ -2,8 +2,9 @@
 
 Takes the config flags of the root ``main.py`` (every field of ``Config``)
 and prints the same per-epoch and mean ± std lines. ``--train_which`` is
-TeacherGNN, or one of the Cold Brew students: SEMLP (teacher, SE table,
-part 1, part 2), StudentBaseMLP or GraphMLP.
+TeacherGNN, one of the Cold Brew students: SEMLP (teacher, SE table,
+part 1, part 2), StudentBaseMLP or GraphMLP, or LP (label propagation,
+which prints one JSON line of accuracies and ends the seed loop).
 
 Usage:
   python -m gnn_tail_generalization_tpu_torch.main --dataset=ogbn-arxiv \
@@ -13,7 +14,8 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-from typing import List, Optional, Tuple
+import json
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -92,7 +94,8 @@ def load_prepared(cfg: Config, data_root: str) -> Tuple[Config, PreparedData]:
     return cfg, prepare(data, cfg)
 
 
-def main(argv: Optional[List[str]] = None) -> List[TrainResult]:
+def main(argv: Optional[List[str]] = None
+         ) -> List[Union[TrainResult, Dict[str, float]]]:
     overrides, ns = parse_args(argv)
     cfg = build_config(**overrides)
     _check_supported(cfg, overrides, ns)
@@ -113,6 +116,9 @@ def main(argv: Optional[List[str]] = None) -> List[TrainResult]:
         res = run_experiment(cfg, pd, seed=cfg.random_seed + seed,
                              log_every=ns.log_every, device=device)
         results.append(res)
+        if isinstance(res, dict):  # pure LP
+            print(json.dumps(res))
+            return results
         print(f"seed {seed}: " + " ".join(
             f"{c}={res.records[-1, i]:.2f}" for i, c in enumerate(res.columns)))
 

@@ -32,10 +32,18 @@ def backbone_from_config(cfg: Config, generator: Optional[torch.Generator]
         n_node=cfg.N_nodes,
         type_trick=cfg.type_trick,
         res_alpha=cfg.res_alpha,
+        layer_agg=cfg.layer_agg,
         dropout=cfg.dropout,
         whetherHasSE=tuple(cfg.TeacherGNN.whetherHasSE),
+        node_norm_type=cfg.node_norm_type,
+        skip_weight=cfg.skip_weight,
+        num_groups=cfg.num_groups,
+        dataset=cfg.dataset,
+        type_model=cfg.type_model,
         spmm_method=cfg.spmm_method,
         apply_graph_dropout=cfg.apply_graph_dropout,
+        graph_dropout=cfg.graph_dropout,
+        layerwise_dropout=cfg.layerwise_dropout,
         generator=generator,
     )
 
@@ -57,16 +65,19 @@ class TeacherGNN(nn.Module):
 
     def forward(self, g: Graph, x: torch.Tensor, *,
                 generator: Optional[torch.Generator] = None,
+                graph_generator: Optional[torch.Generator] = None,
                 want_les: bool = False, g_last: Optional[Graph] = None):
         """Returns (commonEmb, emb4classi_full, se_reg_all, les). With no
         proj2class head the classifier view is commonEmb itself. Train mode
-        draws dropout from ``generator``."""
+        draws dropout from ``generator`` and graph-dropout masks from
+        ``graph_generator``."""
         if self.cfg.TeacherGNN.change_to_featureless:
             x = x * 0
         if self.input_embs is not None:
             x = self.input_embs
         common, se_reg_all, les = self.backbone(
-            g, x, generator=generator, want_les=want_les, g_last=g_last)
+            g, x, generator=generator, graph_generator=graph_generator,
+            want_les=want_les, g_last=g_last)
         classi = (common if self.proj2class is None
                   else self.proj2class(common, generator=generator))
         return common, classi, se_reg_all, les

@@ -9,10 +9,12 @@ entry point, ``spmm(g, x, method)``, with the JAX package's method names:
 ``pallas_bf16``  the bf16-operand, f32-accumulate CUDA CSR kernel.
 ``auto``         ``dense`` when ``g.dense_adj`` exists, else ``pallas``.
 
-``pallas``/``pallas_bf16`` on a graph that carries ``dense_adj`` run the dense
-product instead, as the JAX package does on a graph without plans; under
-``pallas_bf16`` its operands are rounded to bf16 and the product is computed
-and kept in f32. On a CPU tensor the kernel paths run the kernels' plain
+``pallas``/``pallas_bf16`` on a graph without plans (``Graph.has_plans``
+false) fall back as the JAX package does: to the dense product where the
+graph carries ``dense_adj`` (under ``pallas_bf16`` with its operands rounded
+to bf16, the product computed and kept in f32), else to the f32 CSR kernel
+under either name. So masked graphs and the propagation adjacencies never
+round to bf16. On a CPU tensor the kernel paths run the kernels' plain
 versions.
 
 The backward is the same aggregation on the transposed CSR (dx = A^T dy);
@@ -44,10 +46,12 @@ def _spmm_impl(g: Graph, x: torch.Tensor, method: str) -> torch.Tensor:
         return spmm_kernels.spmm_csr_plain(g.indptr, g.indices, g.weight, x)
     if method in ("pallas", "pallas_bf16"):
         bf16 = method == "pallas_bf16"
-        if g.dense_adj is not None:
-            if bf16:
-                return torch.matmul(round_bf16(g.dense_adj), round_bf16(x))
-            return torch.matmul(g.dense_adj, x)
+        if not g.has_plans:
+            if g.dense_adj is not None:
+                if bf16:
+                    return torch.matmul(round_bf16(g.dense_adj), round_bf16(x))
+                return torch.matmul(g.dense_adj, x)
+            bf16 = False  # the JAX package's gather fallback runs in f32
         kernel = spmm_kernels.spmm_csr_bf16 if bf16 else spmm_kernels.spmm_csr_f32
         return kernel(g.indptr, g.indices, g.weight, x)
     raise ValueError(f"unknown spmm method {method!r}; choose one of {METHODS}")

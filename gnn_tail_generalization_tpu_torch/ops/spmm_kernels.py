@@ -21,6 +21,8 @@ from __future__ import annotations
 
 import torch
 
+from ..graph.core import edge_rows
+
 LAUNCHES = {"spmm_csr_f32": 0, "spmm_csr_bf16": 0, "spmm_csr_plain": 0}
 
 
@@ -43,9 +45,7 @@ def spmm_csr_plain(indptr: torch.Tensor, indices: torch.Tensor,
         weight = weight.to(torch.bfloat16)
     x = x.float()
     weight = weight.float()
-    rows = torch.repeat_interleave(
-        torch.arange(n_rows, device=x.device), (indptr[1:] - indptr[:-1]).long(),
-        output_size=indices.numel())
+    rows = edge_rows(indptr, indices.numel())
     y = torch.zeros(n_rows, x.shape[1], dtype=torch.float32, device=x.device)
     return y.index_add_(0, rows, weight[:, None] * x[indices.long()])
 

@@ -13,19 +13,22 @@ The port of ``gnn_tail_generalization_tpu/train/loops.py`` (the reference's
 - ``train_semlp_part2`` (train_seMLP_part2 126-207): cross-entropy on random
   batches (+ graphMLP_reg * NContrast for GraphMLP), head/tail/iso eval as
   forwards on the index subsets;
+- ``run_pure_lp`` (main 33-63): label propagation from the train labels
+  over the DAD adjacency;
 - ``run_experiment``: the dispatch on ``train_which`` (10-30).
 
 Each epoch is one eager step. The JAX package's epoch-block scans and
 vmapped multi-seed training exist to amortise TPU dispatch and are not
 carried over; main.py loops over seeds. Random batches and dropout are drawn
-from one ``torch.Generator`` per phase, seeded from ``seed``.
+from one ``torch.Generator`` per phase, seeded from ``seed`` (the teacher's
+graph-dropout masks from one more).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Mapping, Optional
+from typing import Any, Dict, List, Mapping, Optional, Union
 
 import numpy as np
 import scipy.sparse as sp
@@ -38,6 +41,7 @@ from ..graph.core import Graph, add_self_loops, loss_masked_view, remove_self_lo
 from ..models.semlp import GraphMLP, SEMLPPart1, SEMLPPart2, neighbor_contrastive_loss
 from ..models.teacher import TeacherGNN
 from ..nn.norms import norm_applies
+from ..propagation import correlation as corr
 from .evalutil import headtail_accuracies, masked_accuracy
 from .optim import make_optimizer
 
@@ -46,7 +50,7 @@ from .optim import make_optimizer
 class TrainResult:
     columns: List[str]
     records: np.ndarray  # [epochs, len(columns)]
-    state_dict: Dict[str, torch.Tensor]  # final parameters
+    state_dict: Dict[str, torch.Tensor]  # final parameters and buffers
     step_ms: List[float]  # per epoch: forward, backward and Adam, synchronised
     # the teacher's best-by-acc_test parameters when training for SEMLP,
     # else the final ones
@@ -97,11 +101,15 @@ def train_teacher(
     init_state: Optional[Mapping[str, Any]] = None,
 ) -> TrainResult:
     """Train the teacher for ``epochs`` steps on ``device``. ``seed`` seeds
-    the parameter init and the dropout generator (main.py passes
-    ``cfg.random_seed + run``). ``init_state``: starting parameters (a
-    state_dict, e.g. from utils/convert.params_from_jax) instead of the
-    random init. ``step_ms`` of the result holds each epoch's train-step
-    time on the host clock."""
+    the parameter init, the dropout generator and, from ``seed + 4``, the
+    graph-dropout generator, which only train-mode forwards draw from
+    (main.py passes ``cfg.random_seed + run``). Batch norms run in train
+    mode for the step (moving their running statistics) and in eval mode
+    for the eval forward; their buffers travel in the state_dicts.
+    ``init_state``: starting parameters and buffers (a state_dict, e.g.
+    from utils/convert.params_from_jax) instead of the random init.
+    ``step_ms`` of the result holds each epoch's train-step time on the
+    host clock."""
     if cfg.has_loss_component_edgewise:
         raise NotImplementedError(
             "exp_mode=I2_GTL: the edgewise loss is not ported yet (ROADMAP A8)")
@@ -113,6 +121,8 @@ def train_teacher(
         model.load_state_dict({k: torch.as_tensor(v) for k, v in init_state.items()})
     model.to(device)
     drop_gen = torch.Generator(device=device).manual_seed(seed)
+    # graph-dropout masks get a stream of their own, drawn in train mode only
+    graph_gen = torch.Generator(device=device).manual_seed(seed + 4)
     opt = make_optimizer(cfg, model.parameters())
 
     g = data.graph.to(device)
@@ -145,7 +155,8 @@ def train_teacher(
         t0 = time.perf_counter()
         model.train()
         opt.zero_grad(set_to_none=True)
-        _, classi, se_reg_all, _ = model(g, x, generator=drop_gen, g_last=g_last)
+        _, classi, se_reg_all, _ = model(g, x, generator=drop_gen,
+                                         graph_generator=graph_gen, g_last=g_last)
         loss = torch.zeros((), device=device)
         if cfg.has_loss_component_nodewise:
             loss = _nll_masked(classi, y, train_mask) * cfg.TeacherGNN.lossa_semantic
@@ -466,19 +477,38 @@ def train_semlp_part2(
         step_ms=step_ms, eval_ms=eval_ms)
 
 
+def run_pure_lp(cfg: Config, data: PreparedData, alpha: float = 0.5,
+                num_propagations: int = 50, *, device="cpu") -> Dict[str, float]:
+    """trainer:33-63: DAD label propagation from the train labels on
+    ``device``; accuracies (x100, rounded to 2 places) over the train nodes
+    and over every other node (``~train_mask``, not ``data.test_mask``, as
+    the JAX package's single-device branch)."""
+    device = torch.device(device)
+    dad, _, _ = corr.gen_normalized_adjs(data.edge_index, data.n_node,
+                                         which={"DAD"})
+    y = torch.as_tensor(data.y, device=device)
+    nc = cfg.num_classes or int(data.y.max()) + 1
+    out = corr.label_propagation(
+        y, torch.as_tensor(data.train_idx, device=device), dad.to(device),
+        alpha, num_propagations, nc, spmm_method=cfg.spmm_method)
+    train_mask = torch.as_tensor(data.train_mask, device=device)
+    acc_train = masked_accuracy(out, y, train_mask).item() * 100
+    acc_test = masked_accuracy(out, y, ~train_mask).item() * 100
+    return {"acc_train": round(acc_train, 2), "acc_test": round(acc_test, 2)}
+
+
 def run_experiment(cfg: Config, data: PreparedData, seed: int = 0,
                    epochs: Optional[int] = None, log_every: int = 0, *,
-                   device="cpu") -> TrainResult:
+                   device="cpu") -> Union[TrainResult, Dict[str, float]]:
     """The dispatch on ``cfg.train_which`` (trainer_node_classification.py:
     10-30). SEMLP: teacher (best-by-test weights kept) -> SE table -> part 1
     -> part 2; the result is part 2's, with the teacher's and part 1's
-    results under ``extra``."""
+    results under ``extra``. LP returns ``run_pure_lp``'s dict."""
     tw = cfg.train_which
     if tw == "TeacherGNN":
         return train_teacher(cfg, data, seed, epochs, log_every, device=device)
     if tw == "LP":
-        raise NotImplementedError(
-            "--train_which=LP: label propagation is not ported yet (ROADMAP A7)")
+        return run_pure_lp(cfg, data, device=device)
     if tw in ("StudentBaseMLP", "GraphMLP"):
         cfg = dataclasses.replace(cfg, SEMLP__downgrade_to_MLP=True)
     elif tw != "SEMLP":

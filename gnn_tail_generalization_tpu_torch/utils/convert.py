@@ -1,14 +1,18 @@
 """Parameters of the JAX package's models as the port's state_dicts.
 
-``flat`` maps the '/'-joined paths of a flax ``params`` tree (as
-``flax.traverse_util.flatten_dict(params, sep="/")`` gives them) to numpy
-arrays, e.g. ``backbone/conv_0/kernel`` or ``MLP_0/Dense_1/bias``. Each path
-is walked down the port's module alongside: every flax submodule name maps to
-one submodule of the port (``_child``). At the leaf, a flax ``Dense`` kernel
-``[in, out]`` becomes a ``Linear.weight`` ``[out, in]``, a ``LayerNorm``
-``scale`` becomes its ``weight``, the conv kernel keeps its ``[in, out]``
-layout, and a parameter of the module itself (``alphas``, ``input_embs``)
-keeps its name.
+``flat`` maps the '/'-joined paths of a flax ``params`` tree, and of its
+``batch_stats`` where the model has batch norms (as
+``flax.traverse_util.flatten_dict(tree, sep="/")`` gives them, with or
+without the collection's name in front), to numpy arrays, e.g.
+``backbone/conv_0/kernel``, ``MLP_0/Dense_1/bias`` or
+``backbone/norm_0/BatchNorm_0/mean``. Each path is walked down the port's
+module alongside: every flax submodule name maps to one submodule of the
+port (``_child``). At the leaf, a flax ``Dense`` kernel ``[in, out]`` becomes
+a ``Linear.weight`` ``[out, in]``, a ``LayerNorm`` or ``BatchNorm``
+``scale`` becomes its ``weight``, a ``BatchNorm``'s ``mean`` and ``var``
+become its ``running_mean`` and ``running_var`` buffers, the conv kernel
+keeps its ``[in, out]`` layout, and a parameter of the module itself
+(``alphas``, ``input_embs``) keeps its name.
 """
 from __future__ import annotations
 
@@ -25,6 +29,9 @@ from ..models.teacher import TeacherGNN
 from ..nn.backbone import TricksCombBackbone
 from ..nn.gcn import GCNConv
 from ..nn.mlp import MLP, BlockResMLP
+from ..nn.norms import BatchNorm, GroupNorm, NormLayer
+from ..nn.residual import DenseConnection
+from ..propagation.cs import CSLinear, CSMLp
 
 # leaf name -> (port parameter name, transpose?)
 _LEAVES = (
@@ -32,19 +39,31 @@ _LEAVES = (
                "bias": ("bias", False)}),
     (nn.Linear, {"kernel": ("weight", True), "bias": ("bias", False)}),
     (nn.LayerNorm, {"scale": ("weight", False), "bias": ("bias", False)}),
+    (BatchNorm, {"scale": ("weight", False), "bias": ("bias", False),
+                 "mean": ("running_mean", False), "var": ("running_var", False)}),
 )
 
 
 def _child(module: nn.Module, name: str) -> Optional[str]:
     """The port attribute under ``module`` that holds the flax submodule
     ``name``, or None."""
-    m = re.fullmatch(r"([A-Za-z]+)_(\d+)", name)
+    m = re.fullmatch(r"(\w+?)_(\d+)", name)
     kind, i = (m.group(1), int(m.group(2))) if m else (name, None)
     if isinstance(module, TeacherGNN) and name in ("backbone", "proj2class"):
         return name
     if isinstance(module, TricksCombBackbone):
         return {"conv": f"convs.{i}", "Dense": "input_dense" if i == 0 else None,
-                "out_mlp": "out_mlp"}.get(kind)
+                "out_mlp": "out_mlp", "norm": f"norms.{i}",
+                "dense_agg": f"dense_aggs.{i}",
+                "jumping_agg": "jumping_agg"}.get(kind)
+    if isinstance(module, NormLayer):
+        return {"BatchNorm_0": "bn", "GroupNorm_0": "group"}.get(name)
+    if isinstance(module, GroupNorm):
+        return {"Dense_0": "score", "BatchNorm_0": "bn"}.get(name)
+    if isinstance(module, (DenseConnection, CSLinear)):
+        return "lin" if name == "Dense_0" else None
+    if isinstance(module, CSMLp):
+        return {"Dense": f"lins.{i}", "BatchNorm": f"bns.{i}"}.get(kind)
     if isinstance(module, MLP):
         return {"Dense": f"dense.{i}", "LayerNorm": f"norms.{i}"}.get(kind)
     if isinstance(module, BlockResMLP):
@@ -70,6 +89,8 @@ def _port_name(module: nn.Module, parts) -> Tuple[str, bool]:
                 return leaves[head]
         if head in dict(module.named_parameters(recurse=False)):
             return head, False
+        if head in dict(module.named_buffers(recurse=False)):
+            return head, False
         raise KeyError(head)
     attr = _child(module, head)
     sub = module.get_submodule(attr) if attr else None
@@ -82,11 +103,11 @@ def _port_name(module: nn.Module, parts) -> Tuple[str, bool]:
 def state_dict_from_flax(flat: Mapping[str, np.ndarray], module: nn.Module
                          ) -> Dict[str, torch.Tensor]:
     """The state_dict of the port's ``module`` holding the flax parameters
-    ``flat``. Raises if a parameter is missing, extra or of the wrong
-    shape."""
+    and batch statistics ``flat``. Raises if a parameter or buffer is
+    missing, extra or of the wrong shape."""
     out = {}
     for path, arr in flat.items():
-        path = path.removeprefix("params/")
+        path = path.removeprefix("params/").removeprefix("batch_stats/")
         try:
             name, transpose = _port_name(module, path.split("/"))
         except (KeyError, AttributeError):
@@ -96,16 +117,20 @@ def state_dict_from_flax(flat: Mapping[str, np.ndarray], module: nn.Module
     expected = {k: tuple(v.shape) for k, v in module.state_dict().items()}
     got = {k: tuple(v.shape) for k, v in out.items()}
     if got != expected:
-        raise ValueError(f"flax parameters do not fit the port's module: "
+        raise ValueError(f"flax variables do not fit the port's module: "
                          f"missing {sorted(expected.keys() - got.keys())}, "
                          f"extra {sorted(got.keys() - expected.keys())}, "
                          f"shapes {[(k, got[k], expected[k]) for k in got.keys() & expected.keys() if got[k] != expected[k]]}")
     return out
 
 
-def params_from_jax(flat: Mapping[str, np.ndarray], cfg: Config
+def params_from_jax(flat: Mapping[str, np.ndarray], cfg: Config,
+                    batch_stats: Optional[Mapping[str, np.ndarray]] = None
                     ) -> Dict[str, torch.Tensor]:
-    """The state_dict of ``TeacherGNN(cfg)`` holding the flax parameters."""
+    """The state_dict of ``TeacherGNN(cfg)`` holding the flax parameters and,
+    where the model has batch norms, the flax ``batch_stats`` (flat, as
+    ``flat``) in their running-statistics buffers."""
+    flat = {**flat, **(batch_stats or {})}
     with torch.device("meta"):  # names and shapes only, no memory
         model = TeacherGNN(cfg)
     return state_dict_from_flax(flat, model)

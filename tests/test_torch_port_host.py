@@ -1,6 +1,7 @@
 """The PyTorch port's host-side code against the JAX package's: config chain,
 synthetic generators, edge pipeline, degree analysis, CSR and degrees —
 exact equality — and a subprocess proving the port imports no JAX."""
+import ast
 import dataclasses
 import os
 import subprocess
@@ -189,17 +190,49 @@ from gnn_tail_generalization_tpu_torch.train.loops import run_experiment
 import gnn_tail_generalization_tpu_torch.models.semlp
 import gnn_tail_generalization_tpu_torch.nn.mlp
 import gnn_tail_generalization_tpu_torch.ops.topk_attention
+import gnn_tail_generalization_tpu_torch.nn.norms
+import gnn_tail_generalization_tpu_torch.nn.graph_dropout
+import gnn_tail_generalization_tpu_torch.propagation.diffusion
+import gnn_tail_generalization_tpu_torch.propagation.correlation
+from gnn_tail_generalization_tpu_torch.propagation.cs import run_cs_pipeline
 data = synthetic_planetoid(n_node=80, n_feat=12, n_class=3, seed=0)
-for tw in ("TeacherGNN", "SEMLP", "GraphMLP"):
+for tw, trick in (("TeacherGNN", "InitialBatchNorm"), ("SEMLP", "InitialBatchNorm"),
+                  ("GraphMLP", "InitialBatchNorm"), ("TeacherGNN", "GroupNorm"),
+                  ("TeacherGNN", "DenseNoNorm"), ("TeacherGNN", "LADIES"),
+                  ("LP", "InitialBatchNorm")):
     cfg = build_config(dataset="", train_which=tw, N_nodes=80,
                        num_feats=12, num_classes=3, dim_hidden=8,
-                       type_trick="InitialBatchNorm", whetherHasSE="111")
-    res = run_experiment(cfg, prepare(data, cfg, spmm_dense_threshold=10),
-                         epochs=1)
-    assert np.isfinite(res.records).all(), (tw, res.records)
+                       type_trick=trick, whetherHasSE="111",
+                       force_set_to_best_config=False, skip_weight=0.01,
+                       num_groups=2,
+                       apply_graph_dropout=trick == "LADIES",
+                       layerwise_dropout=True)
+    pd = prepare(data, cfg, spmm_dense_threshold=10)
+    res = run_experiment(cfg, pd, epochs=1)
+    records = np.array(list(res.values())) if tw == "LP" else res.records
+    assert np.isfinite(records).all(), (tw, trick, records)
+cfg = build_config(dataset="", train_which="LP", N_nodes=80, num_feats=12,
+                   num_classes=3, force_set_to_best_config=False)
+cs = run_cs_pipeline(cfg, pd, epochs=2)
+assert np.isfinite(cs["out"].numpy()).all()
 assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 print("NO_JAX_OK")
 """
+
+
+def _without_docstring(path):
+    tree = ast.parse(open(path).read())
+    return ast.unparse(ast.Module(body=tree.body[1:], type_ignores=[]))
+
+
+def test_diffusion_copy_matches_the_original():
+    """propagation/diffusion.py is a copy (the JAX package's module cannot be
+    imported without JAX): the code after the docstring is the original's."""
+    port = os.path.join(REPO, "gnn_tail_generalization_tpu_torch", "propagation",
+                        "diffusion.py")
+    orig = os.path.join(REPO, "gnn_tail_generalization_tpu", "propagation",
+                        "diffusion.py")
+    assert _without_docstring(port) == _without_docstring(orig)
 
 
 def test_port_imports_no_jax():

@@ -72,7 +72,7 @@ def test_spmm_grad_matches_jax_vjp(rng, n, e, d, hub, method):
     y_j, vjp = jax.vjp(lambda v: jspmm.spmm(jg, v, method), jnp.asarray(x))
     (dx_j,) = vjp(jnp.asarray(ct))
 
-    tg = tcore.build_graph(ei, n, w, with_dense=False)
+    tg = tcore.build_graph(ei, n, w, with_dense=False, with_plans=True)
     xt = torch.from_numpy(x).requires_grad_(True)
     y_t = tspmm.spmm(tg, xt, method)
     y_t.backward(torch.from_numpy(ct))

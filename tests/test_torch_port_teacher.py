@@ -6,6 +6,7 @@ and three epochs of train_teacher from the same initial parameters (loss to
 sides: the Pallas kernels in interpret mode there, the CSR kernels' plain
 versions here. Dropout is 0: random streams differ between frameworks."""
 import dataclasses
+import json
 
 import jax
 import jax.numpy as jnp
@@ -141,16 +142,36 @@ def test_main_cli_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--exp_mode=I2_GTL"], "A8"), (["--train_which=LP"], "A7"),
+    (["--exp_mode=I2_GTL"], "A8"),
     (["--n_devices=2"], "A12"), (["--hier_mesh=2x4"], "A12"),
-    (["--prog=1-0-2"], "A11"), (["--type_trick=BatchNorm"], "norm"),
-    (["--type_trick=Jumping"], "DenseConnection"),
-    (["--apply_graph_dropout=1"], "graph dropout"),
+    (["--prog=1-0-2"], "A11"),
     (["--records_path=/tmp/r"], "A11")])
 def test_main_raises_for_unported_parts(argv, match):
     with pytest.raises(NotImplementedError, match=match):
         tmain.main(["--dataset=TEXAS", "--epochs=1", "--device=cpu",
                     "--force_set_to_best_config=0"] + argv)
+
+
+@pytest.mark.parametrize("argv", [
+    ["--train_which=LP"], ["--type_trick=BatchNorm"], ["--type_trick=Jumping"],
+    ["--apply_graph_dropout=1", "--type_trick=DropEdge"]],
+    ids=["LP", "BatchNorm", "Jumping", "graph_dropout"])
+def test_main_runs_ported_parts(capsys, argv):
+    """The flags that once raised run on the CPU: finite records, or for LP
+    one JSON line of accuracies."""
+    results = tmain.main(["--dataset=TEXAS", "--epochs=2", "--device=cpu",
+                          "--force_set_to_best_config=0"] + argv)
+    assert len(results) == 1
+    if argv == ["--train_which=LP"]:
+        lines = [ln for ln in capsys.readouterr().out.splitlines()
+                 if ln.startswith("{")]
+        assert len(lines) == 1
+        res = json.loads(lines[0])
+        assert res == results[0] and set(res) == {"acc_train", "acc_test"}
+        assert all(np.isfinite(v) for v in res.values())
+    else:
+        assert results[0].records.shape[0] == 2
+        assert np.isfinite(results[0].records).all()
 
 
 def test_main_refuses_cuda_without_a_card(monkeypatch):
