@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's teacher, trick zoo, Cold Brew student and label
-propagation paths on one CUDA card.
+"""Drive the PyTorch port's teacher, trick zoo, Cold Brew student, label
+propagation and link-prediction paths on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -49,14 +49,34 @@ Phases (any failure exits non-zero; nothing is caught):
    ``run_cs_pipeline`` with diffusion features and 5 mid-step epochs (the
    f32 kernel launched num_propagations1 + num_propagations2 times), and
    ``lp_step`` against the plain version (1e-5 relative); the ms of both
-   and of one propagation.
+   and of one propagation;
+7. link prediction at the ogbl-citation2 shape (``bench_linkpred.py``'s
+   graph: 2,927,963 nodes, a power-law graph of 15.2M edges, 8,192 valid
+   and 8,192 test positives with 50 sampled negatives each, message edges
+   the symmetrized rest, ~30.4M; 128 features drawn on the card), with the
+   host build's seconds and the maximum in-degree: (i) both kernels against
+   the plain version on that graph at d=256; (ii) the JAX package's bench
+   config (SAGE + DOT, ``ce_loss``, features, no embedding, batch 65,536,
+   3 negatives, ``pallas_bf16``) through ``train_linkpred``, 2 epochs of 8
+   steps, the bf16 kernel launched exactly 1 + 2 per step + 1 per eval and
+   nothing else, a finite MRR; (iii) its 16-step epoch and the warm
+   1000-negative OGB eval, timed; (iv) the default ``LinkPredConfig()`` (a
+   trainable [n, 256] embedding, the f32 kernel 4 per step + 2 per eval);
+   (v) one step of each at dropout 0 through the kernels against the plain
+   versions, loss and every gradient within the larger of 1e-5 and 4x the
+   plain step's own sum-order floor; (vi) GCN (the f32 kernel) and the
+   Transformer (no launch) at the bench shape; (vii) ``--exp_mode=I2_GTL
+   --task=linkp`` through ``main`` (the 2,000-node stand-in, dense, no
+   launch).
 
-Prints the kernels' JSON line (launches summed over every phase), then as
-the last line
+Prints the kernels' JSON line (launches summed over every phase; phase 7's
+numbers under ``linkpred``), then as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
+import contextlib
 import copy
 import dataclasses
+import functools
 import json
 import statistics
 import subprocess
@@ -106,6 +126,12 @@ TRICK_RUNS = {
 TRICK_PARITY = {"GroupNorm": True, "LADIES": False}
 LP_ARGS = ["--dataset=ogbn-arxiv", "--train_which=LP", "--device=cuda"]
 CS_EPOCHS = 5
+# phase 7: link prediction at ogbl-citation2's shape (bench_linkpred.py:49-105)
+C2_NODES, C2_EDGES, C2_FEATS = 2_927_963, 30_387_995 // 2, 128
+BENCH_NODES, BENCH_EDGES = 169_343, 1_166_243  # phase 2's bench shape
+EVAL_POS, EVAL_NEG, OGB_NEG = 8192, 50, 1000
+TIMED_STEPS = 16
+I2GTL_ARGS = ["--exp_mode=I2_GTL", "--task=linkp", "--device=cuda"]
 
 
 def log(msg: str) -> None:
@@ -132,7 +158,7 @@ def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
-def compare(name, fn, g, x, plain_bf16, card_name, tag):
+def compare(name, fn, g, x, plain_bf16, card_name, tag, reps: int = 20):
     """Kernel ``fn`` vs the plain version on ``g``'s CSR: (abs err, rel err,
     kernel ms, plain ms). Fails when rel err > REL_TOL."""
     from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
@@ -144,8 +170,9 @@ def compare(name, fn, g, x, plain_bf16, card_name, tag):
     assert y.shape == y_ref.shape and y.dtype == torch.float32, (y.shape, y.dtype)
     abs_err = (y - y_ref).abs().max().item()
     rel_err = abs_err / max(y_ref.abs().max().item(), 1e-30)
-    ms = median_ms(lambda: fn(*args))
-    plain_ms = median_ms(lambda: K.spmm_csr_plain(*args, bf16=plain_bf16))
+    del y, y_ref
+    ms = median_ms(lambda: fn(*args), reps=reps)
+    plain_ms = median_ms(lambda: K.spmm_csr_plain(*args, bf16=plain_bf16), reps=reps)
     log(f"  {name:14s} {tag:28s} d={x.shape[1]:3d} max_abs_err={abs_err:.3e} "
         f"rel_err={rel_err:.3e} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
         f"[{card_name}]")
@@ -531,6 +558,277 @@ def propagation_phase(pd, card_name: str, totals: dict) -> dict:
             "cs_propagations_ms": cs_ms, "cs_pipeline_s": cs_s}
 
 
+def lp_split(n_node: int, n_edge: int):
+    """bench_linkpred.py:49-97 with the port's host copies: a power-law graph,
+    EVAL_POS valid and EVAL_POS test positives with EVAL_NEG sampled
+    non-edges each, the other edges train; message edges = symmetrize(train).
+    Returns (split_edge, message edges, host seconds)."""
+    from gnn_tail_generalization_tpu_torch.data.synthetic import fast_powerlaw_graph
+    from gnn_tail_generalization_tpu_torch.graph.core import symmetrize
+    from gnn_tail_generalization_tpu_torch.linkpred import sampling
+
+    t0 = time.perf_counter()
+    e = fast_powerlaw_graph(n_node, n_edge, 0)
+    perm = np.random.default_rng(0).permutation(e.shape[1])
+    val, test = e[:, perm[:EVAL_POS]], e[:, perm[EVAL_POS:2 * EVAL_POS]]
+    train = e[:, perm[2 * EVAL_POS:]]
+    negs = sampling.rejection_sample_non_edges(
+        np.random.default_rng(1), sampling.edge_keys(e, n_node), n_node,
+        2 * EVAL_POS * EVAL_NEG)
+    split_edge = {
+        "train": {"edge": train.T},
+        "valid": {"edge": val.T, "edge_neg": negs[:EVAL_POS * EVAL_NEG]},
+        "test": {"edge": test.T, "edge_neg": negs[EVAL_POS * EVAL_NEG:]},
+    }
+    return split_edge, symmetrize(train, n_node), time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Route ``spmm``'s kernel calls to the plain version (the bf16 one with
+    its rounding), for the parity steps."""
+    from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
+
+    saved = K.spmm_csr_f32, K.spmm_csr_bf16
+    K.spmm_csr_f32 = K.spmm_csr_plain
+    K.spmm_csr_bf16 = functools.partial(K.spmm_csr_plain, bf16=True)
+    try:
+        yield
+    finally:
+        K.spmm_csr_f32, K.spmm_csr_bf16 = saved
+
+
+def lp_grads(cfg, model, g, x, batch):
+    """Loss and gradients of one train-mode step (no update) on graph ``g``,
+    the hoisted aggregation recomputed for it."""
+    from gnn_tail_generalization_tpu_torch.linkpred import model as lpm
+
+    const = lpm.link_const(cfg, g, x)
+    model.train()
+    model.zero_grad(set_to_none=True)
+    loss = lpm.make_loss_fn(cfg, model)(const, *batch)
+    loss.backward()
+    return loss.item(), {k: p.grad.detach().clone()
+                         for k, p in model.named_parameters()}
+
+
+def lp_parity(cfg, g, g_reordered, x, train_edges, tag) -> dict:
+    """One step at dropout 0 from fixed weights, the kernels against the
+    plain versions, in loss and every gradient: each within the larger of
+    REL_TOL and 4x the plain step's own sum-order floor (the same plain step
+    on ``g_reordered``, the edges of every row summed in another order)."""
+    from gnn_tail_generalization_tpu_torch.linkpred import model as lpm
+
+    dev = x.device
+    cfg = dataclasses.replace(cfg, dropout=0.0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    with torch.device(dev):
+        model = lpm.LinkPredModel(cfg, g.n_node, x.shape[1], generator=gen)
+    b = cfg.batch_size
+    pos = torch.as_tensor(train_edges[:b].astype(np.int64), device=dev)
+    neg = torch.randint(0, g.n_node, (b, cfg.num_neg, 2), generator=gen, device=dev)
+    valid = (torch.arange(b, device=dev) < b * 3 // 4).float()
+    batch = (pos, neg, None, valid)
+    loss_k, grads_k = lp_grads(cfg, model, g, x, batch)
+    with plain_kernels():
+        loss_p, grads_p = lp_grads(cfg, model, g, x, batch)
+        loss_f, grads_f = lp_grads(cfg, model, g_reordered, x, batch)
+    rows = {"loss": (abs(loss_k - loss_p) / abs(loss_p),
+                     abs(loss_f - loss_p) / abs(loss_p))}
+    for k in grads_p:
+        assert torch.isfinite(grads_k[k]).all(), (tag, k)
+        rows[k] = (rel_err(grads_k[k], grads_p[k]), rel_err(grads_f[k], grads_p[k]))
+    log(f"  {tag}: loss kernel={loss_k:.8f} plain={loss_p:.8f}")
+    for k, (rel, floor) in rows.items():
+        bound = max(REL_TOL, 4 * floor)
+        log(f"  {tag} {k:32s} rel={rel:.3e} order floor={floor:.3e} "
+            f"(bound {bound:.1e})")
+        assert rel <= bound, (tag, k, rel, bound)
+    return {k: {"rel": r, "floor": f} for k, (r, f) in rows.items()}
+
+
+def lp_timed(cfg, g, x, split_edge, msg, card_name) -> dict:
+    """The bench config's TIMED_STEPS-step epoch (best of 2 after a warm-up)
+    and the warm OGB-style eval: EVAL_POS positives x OGB_NEG uniform
+    destinations, one encode, chunked scoring, grouped MRR."""
+    from gnn_tail_generalization_tpu_torch.linkpred import metrics as M
+    from gnn_tail_generalization_tpu_torch.linkpred import model as lpm
+    from gnn_tail_generalization_tpu_torch.linkpred import sampling
+
+    dev, n, bsz = x.device, g.n_node, cfg.batch_size
+    gen = torch.Generator(device=dev).manual_seed(1)
+    with torch.device(dev):
+        model = lpm.LinkPredModel(cfg, n, x.shape[1], generator=gen)
+    const = lpm.link_const(cfg, g, x)
+    epoch = lpm.make_epoch_fn(cfg, model, lpm.make_optimizer(cfg, model.parameters()),
+                              n, TIMED_STEPS, bsz, TIMED_STEPS * bsz)
+    pos_all = torch.as_tensor(
+        split_edge["train"]["edge"][:TIMED_STEPS * bsz].astype(np.int64), device=dev)
+    keys = sampling.build_membership(sampling.edge_keys(msg, n)).to(dev)
+    model.train()
+    epoch_s = []
+    for _ in range(3):  # the first warms up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = epoch(const, pos_all, keys, gen)
+        torch.cuda.synchronize()
+        epoch_s.append(time.perf_counter() - t0)
+        assert torch.isfinite(losses).all(), losses
+    best = min(epoch_s[1:])
+    log(f"  {TIMED_STEPS}-step epoch s {[round(s, 4) for s in epoch_s]} (first warms "
+        f"up): {best / TIMED_STEPS * 1e3:.3f} ms a step [{card_name}]")
+
+    val = torch.as_tensor(split_edge["valid"]["edge"][:EVAL_POS].astype(np.int64),
+                          device=dev)
+    neg = torch.stack([val[:, 0].repeat_interleave(OGB_NEG),
+                       torch.randint(0, n, (EVAL_POS * OGB_NEG,), generator=gen,
+                                     device=dev)], dim=1)
+
+    def ogb_eval():
+        model.eval()
+        with torch.no_grad():
+            h = lpm.encode_all(model, const)
+            pos_s = lpm.predict_chunked(model, h, val, chunk=512 * 1024)
+            neg_s = lpm.predict_chunked(model, h, neg, chunk=512 * 1024)
+        return M.mrr(pos_s, neg_s.reshape(EVAL_POS, OGB_NEG))  # reads back
+
+    ogb_eval()
+    eval_s = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        mrr = ogb_eval()
+        eval_s.append(time.perf_counter() - t0)
+    assert np.isfinite(mrr), mrr
+    log(f"  OGB eval: {EVAL_POS} positives x {OGB_NEG} destinations, MRR={mrr:.4f}, "
+        f"warm s {[round(s, 4) for s in eval_s]} [{card_name}]")
+    return {"epoch_s": epoch_s, "step_ms": best / TIMED_STEPS * 1e3,
+            "ogb_eval_s": min(eval_s), "ogb_mrr": mrr}
+
+
+def run_linkpred(cfg, x, split_edge, msg, n_node, expect, tag, card_name,
+                 totals, dev, **kw) -> dict:
+    """``train_linkpred`` on the card with the launch counts reset before and
+    read after; fails unless they equal ``expect`` and every loss and
+    statistic is finite."""
+    from gnn_tail_generalization_tpu_torch.linkpred import model as lpm
+    from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
+
+    expect = {k: expect.get(k, 0) for k in K.LAUNCHES}
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    out = lpm.train_linkpred(cfg, x, msg, n_node, split_edge=split_edge,
+                             msg_edges=msg, log_every=1, device=dev, **kw)
+    counts = dict(K.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  {tag}: launches {counts}, epoch s {[round(s, 4) for s in out['epoch_s']]}, "
+        f"losses {out['epoch_loss']}, {out['last_results']}, peak {peak_gb:.2f} GiB "
+        f"[{card_name}]")
+    assert counts == expect, f"{tag} launched {counts}, expected {expect}"
+    assert np.isfinite(out["epoch_loss"]).all(), out["epoch_loss"]
+    assert all(np.isfinite(v) for v in out["stats"].values()), out["stats"]
+    for k, v in counts.items():
+        totals[k] += v
+    return {"launches": counts, "epoch_s": out["epoch_s"],
+            "epoch_loss": out["epoch_loss"], "results": out["last_results"],
+            "peak_gib": peak_gb}
+
+
+def linkpred_phase(card_name: str, totals: dict, dev) -> dict:
+    """Phase 7: I2-GTL link prediction at the ogbl-citation2 shape."""
+    from gnn_tail_generalization_tpu_torch import main as port_main
+    from gnn_tail_generalization_tpu_torch.linkpred import model as lpm
+    from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
+
+    t_phase = time.perf_counter()
+    split_edge, msg, split_s = lp_split(C2_NODES, C2_EDGES)
+    # the JAX package's bench config (bench_linkpred.py:100-105) and the
+    # reference's default; both train SAGE on the same message graph
+    bench = lpm.LinkPredConfig(
+        encoder="SAGE", predictor="DOT", loss_func="ce_loss", use_node_feats=True,
+        train_node_emb=False, eval_metric="mrr", num_neg=3, batch_size=64 * 1024,
+        spmm_method="pallas_bf16")
+    default = lpm.LinkPredConfig()
+    t0 = time.perf_counter()
+    g_host = lpm.link_graph(bench, msg, C2_NODES)
+    csr_s = time.perf_counter() - t0
+    g = g_host.to(dev)
+    max_in = int((g_host.indptr[1:] - g_host.indptr[:-1]).max())
+    log(f"  citation2-shape graph: n_node={g.n_node} message edges={g.n_edge} "
+        f"max_in_degree={max_in}; host build: split {split_s:.1f} s, CSR pair "
+        f"{csr_s:.1f} s")
+
+    log("  (i) both kernels against the plain version on the citation2 graph, d=256")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    kernel_ms = {}
+    for tag, gg in (("citation2 fwd", g), ("citation2 transposed", g.transpose())):
+        x = torch.randn(gg.n_node, 256, generator=gen, device=dev)
+        for name, fn, bf16 in (("spmm_csr_f32", K.spmm_csr_f32, False),
+                               ("spmm_csr_bf16", K.spmm_csr_bf16, True)):
+            a, r, ms, pms = compare(name, fn, gg, x, bf16, card_name, tag, reps=5)
+            kernel_ms[f"{name} {tag}"] = {"rel_err": r, "ms": ms, "plain_ms": pms}
+        del x
+    torch.cuda.empty_cache()
+
+    x = torch.randn(C2_NODES, C2_FEATS, generator=gen, device=dev)
+    steps = 2 * 8
+    log("  (ii) the bench config through train_linkpred: 2 epochs of 8 steps")
+    # bf16 launches: 1 hoisted layer-1 aggregation, 2 per train step (layer-2
+    # forward and its transposed backward), 1 per eval encode (layer 2)
+    bench_run = run_linkpred(
+        bench, x, split_edge, msg, C2_NODES, {"spmm_csr_bf16": 1 + 2 * steps + 1},
+        "bench config", card_name, totals, dev, epochs=2, eval_steps=2,
+        max_steps_per_epoch=8)
+    assert np.isfinite(bench_run["results"]["MRR"]).all()
+    log("  (iii) the bench config's timed epoch and OGB-style eval")
+    timed = lp_timed(bench, g, x, split_edge, msg, card_name)
+    torch.cuda.empty_cache()
+
+    log("  (iv) LinkPredConfig() through train_linkpred: 2 epochs of 8 steps")
+    # f32 launches: per step the layer-1 and layer-2 forwards and both
+    # transposed backwards (the embedding trains), 2 per eval encode
+    default_run = run_linkpred(
+        default, None, split_edge, msg, C2_NODES, {"spmm_csr_f32": 4 * steps + 2},
+        "default config", card_name, totals, dev, epochs=2, eval_steps=2,
+        max_steps_per_epoch=8)
+    torch.cuda.empty_cache()
+
+    log("  (v) one-step parity on the citation2 graph, kernels vs plain (dropout 0)")
+    perm = np.random.default_rng(2).permutation(msg.shape[1])
+    g_re = lpm.link_graph(bench, msg[:, perm], C2_NODES).to(dev)
+    train_edges = split_edge["train"]["edge"]
+    parity = {"bench": lp_parity(bench, g, g_re, x, train_edges, "bench"),
+              "default": lp_parity(default, g, g_re,
+                                   torch.zeros(C2_NODES, 1, device=dev),
+                                   train_edges, "default")}
+    del g_re, x
+    torch.cuda.empty_cache()
+
+    log("  (vi) GCN and Transformer at the bench shape: 2 steps each")
+    split_b, msg_b, _ = lp_split(BENCH_NODES, BENCH_EDGES)
+    others = {}
+    for kind, expect in (("GCN", {"spmm_csr_f32": 2 * 4 + 2}), ("Transformer", {})):
+        others[kind] = run_linkpred(
+            lpm.LinkPredConfig(encoder=kind), None, split_b, msg_b, BENCH_NODES,
+            expect, kind, card_name, totals, dev, epochs=1, max_steps_per_epoch=2)
+
+    log("  (vii) --exp_mode=I2_GTL through the port's main (2,000-node stand-in)")
+    K.reset_launch_counts()
+    cli = port_main.main(I2GTL_ARGS)[0]
+    assert not any(K.LAUNCHES.values()), K.LAUNCHES  # the dense product
+    assert all(np.isfinite(v) for v in cli.values()), cli
+    phase_s = time.perf_counter() - t_phase
+    log(f"  phase 7: {phase_s:.1f} s")
+
+    return {"phase_s": phase_s, "n_node": C2_NODES, "n_msg_edges": g.n_edge, "max_in_degree": max_in,
+            "host_build_s": {"split": split_s, "csr_pair": csr_s},
+            "kernels_d256": kernel_ms,
+            "bench": {**bench_run, "step_ms": bench_run["epoch_s"][1] / 8 * 1e3},
+            "bench_timed": timed,
+            "default": {**default_run,
+                        "step_ms": default_run["epoch_s"][1] / 8 * 1e3},
+            "parity": parity, "others": others, "cli": cli}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
@@ -624,6 +922,11 @@ def main() -> int:
 
     log("== phase 6: label propagation and Correct & Smooth")
     propagation = propagation_phase(pd, card_name, totals)
+    del pd
+    torch.cuda.empty_cache()
+
+    log("== phase 7: link prediction at the ogbl-citation2 shape")
+    linkpred = linkpred_phase(card_name, totals, dev)
 
     assert totals["spmm_csr_plain"] == 0, totals
     kernels = [{"name": name, "route": "cuda", "source": SOURCE,
@@ -634,7 +937,8 @@ def main() -> int:
                for name in KERNELS]
     print(json.dumps({"kernels": kernels, "step_ms": step_ms,
                       "student": student, "trick_step_ms": tricks,
-                      "propagation": propagation, "card": card_name}))
+                      "propagation": propagation, "linkpred": linkpred,
+                      "card": card_name}))
     print(card_name)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

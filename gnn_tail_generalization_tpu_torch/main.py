@@ -5,16 +5,22 @@ and prints the same per-epoch and mean ± std lines. ``--train_which`` is
 TeacherGNN, one of the Cold Brew students: SEMLP (teacher, SE table,
 part 1, part 2), StudentBaseMLP or GraphMLP, or LP (label propagation,
 which prints one JSON line of accuracies and ends the seed loop).
+``--exp_mode=I2_GTL`` with a ``--task`` other than nodeC trains link
+prediction on the transfer split (``run_i2gtl``) and prints its stats as
+one JSON line.
 
 Usage:
   python -m gnn_tail_generalization_tpu_torch.main --dataset=ogbn-arxiv \
       --train_which=SEMLP --whetherHasSE=111 --epochs=3 --device=cuda
+  python -m gnn_tail_generalization_tpu_torch.main --exp_mode=I2_GTL \
+      --task=linkp --device=cuda
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import os
 from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
@@ -22,6 +28,7 @@ import torch
 
 from .config import Config, apply_arch_configs, build_config
 from .data.datasets import PreparedData, load_dataset, prepare
+from .data.synthetic import fast_powerlaw_graph
 from .train.loops import TrainResult, run_experiment
 
 
@@ -70,9 +77,37 @@ def _check_supported(cfg: Config, overrides: dict, ns) -> None:
         raise NotImplementedError(
             "--prog / --records_path / --records_desc: utils/records.py is "
             "not ported yet (ROADMAP A11)")
-    if cfg.exp_mode == "I2_GTL" and cfg.task != "nodeC":
+
+
+def run_i2gtl(data_root: str, log_every: int, device) -> Dict[str, float]:
+    """exp_mode=I2_GTL: link-prediction transfer learning (the reference's
+    trainer_link_prediction.py standalone mode): the default
+    ``LinkPredConfig``, 2 runs of 5 epochs on the i2t transfer split of
+    ogbl-citation2 or, with no raw files, of a 2,000-node synthetic
+    stand-in. Prints and returns the stats."""
+    from .linkpred import model as lpm
+    from .linkpred import surgery
+
+    if any(os.path.isdir(os.path.join(data_root, d))
+           for d in ("ogbl-citation2", "ogbl_citation2")):
         raise NotImplementedError(
-            "link-prediction transfer is not ported yet (ROADMAP A9)")
+            f"raw ogbl-citation2 files found under {data_root!r}, but the "
+            "port has no ogbl reader yet (ROADMAP A0b, dataset readers)")
+    print("NOTE: no ogbl raw files; synthetic transfer stand-in.")
+    rng = np.random.default_rng(0)
+    n = 2000
+    g = surgery.GraphData(
+        x=rng.normal(size=(n, 64)).astype(np.float32),
+        edge_index=fast_powerlaw_graph(n, 10000, 0),
+        node_year=rng.integers(2010, 2019, n),
+        keys=np.arange(n),
+    )
+    g2, se = surgery.transfer_surgery_node_year(g, "i2t", drop_rate=0.0)
+    out = lpm.train_linkpred(lpm.LinkPredConfig(), g2.x, g2.edge_index,
+                             g2.n_node, epochs=5, runs=2, split_edge=se,
+                             log_every=log_every, device=device)
+    print(json.dumps(out["stats"]))
+    return out["stats"]
 
 
 def fitted_to(cfg: Config, data) -> Config:
@@ -105,6 +140,8 @@ def main(argv: Optional[List[str]] = None
     # f32 matmuls in full f32, as the JAX package's Precision.HIGHEST
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if cfg.exp_mode == "I2_GTL" and cfg.task != "nodeC":
+        return [run_i2gtl(ns.data_root, ns.log_every, device)]
 
     print(f"Configs:\n  dataset={cfg.dataset} train_which={cfg.train_which} "
           f"type_trick={cfg.type_trick} num_layers={cfg.num_layers} "

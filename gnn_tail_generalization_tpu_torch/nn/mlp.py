@@ -27,14 +27,16 @@ _LN_EPS = 1e-6  # flax nn.LayerNorm's default
 
 
 def dense_layer(in_feats: int, out_feats: int,
-                generator: Optional[torch.Generator]) -> nn.Linear:
+                generator: Optional[torch.Generator], *,
+                bias: bool = True) -> nn.Linear:
     """``nn.Linear`` initialised like flax ``nn.Dense``: lecun-normal weight,
-    zero bias."""
-    lin = nn.Linear(in_feats, out_feats)
+    zero bias (``bias=False``: flax's ``use_bias=False``)."""
+    lin = nn.Linear(in_feats, out_feats, bias=bias)
     std = (1.0 / in_feats) ** 0.5 / _TRUNC_STD
     nn.init.trunc_normal_(lin.weight, std=std, a=-2 * std, b=2 * std,
                           generator=generator)
-    nn.init.zeros_(lin.bias)
+    if bias:
+        nn.init.zeros_(lin.bias)
     return lin
 
 

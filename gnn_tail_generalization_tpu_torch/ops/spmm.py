@@ -60,16 +60,19 @@ def _spmm_impl(g: Graph, x: torch.Tensor, method: str) -> torch.Tensor:
 class _SpMM(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, g, method):
-        ctx.g, ctx.method = g, method
+        ctx.g, ctx.method, ctx.x_dtype = g, method, x.dtype
         return _spmm_impl(g, x, method)
 
     @staticmethod
     def backward(ctx, dy):
-        return _spmm_impl(ctx.g.transpose(), dy.contiguous(), ctx.method), None, None
+        dx = _spmm_impl(ctx.g.transpose(), dy.contiguous(), ctx.method)
+        return dx.to(ctx.x_dtype), None, None
 
 
 def spmm(g: Graph, x: torch.Tensor, method: str = "auto") -> torch.Tensor:
-    """y = A @ x with A[dst, src] = w_e. ``x``: [N, d] f32 -> ``y``: [N, d] f32.
+    """y = A @ x with A[dst, src] = w_e. ``x``: [N, d] f32, or bf16 (the
+    link-prediction GCN's bf16 Dense output under ``pallas_bf16``) ->
+    ``y``: [N, d] f32; the gradient of ``x`` takes ``x``'s dtype.
     Raises unless ``x`` has one row per node of ``g``: the CUDA kernels read
     ``x[indices_e]`` unchecked."""
     if x.dim() != 2 or x.shape[0] != g.n_node:

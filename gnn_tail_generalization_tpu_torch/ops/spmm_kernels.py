@@ -31,10 +31,17 @@ def reset_launch_counts() -> None:
         LAUNCHES[k] = 0
 
 
+#: edges per ``index_add_`` of the plain version: its [chunk, d] gathered
+#: rows stay a few GB at d = 256 where the whole [E, d] stream of a 30M-edge
+#: graph would not fit on the card
+PLAIN_EDGE_CHUNK = 1 << 22
+
+
 def spmm_csr_plain(indptr: torch.Tensor, indices: torch.Tensor,
                    weight: torch.Tensor, x: torch.Tensor, *,
                    bf16: bool = False) -> torch.Tensor:
-    """The plain version: expand ``indptr`` to row ids and ``index_add_``.
+    """The plain version: expand ``indptr`` to row ids and ``index_add_``
+    the weighted source rows, ``PLAIN_EDGE_CHUNK`` edges at a time.
     ``bf16=True`` rounds ``x`` and ``w`` to bf16 first, as the bf16 kernel
     does; the product of two bf16 values is exact in f32, so the two differ
     only in the order of the sums."""
@@ -47,7 +54,10 @@ def spmm_csr_plain(indptr: torch.Tensor, indices: torch.Tensor,
     weight = weight.float()
     rows = edge_rows(indptr, indices.numel())
     y = torch.zeros(n_rows, x.shape[1], dtype=torch.float32, device=x.device)
-    return y.index_add_(0, rows, weight[:, None] * x[indices.long()])
+    for s in range(0, indices.numel(), PLAIN_EDGE_CHUNK):
+        e = slice(s, s + PLAIN_EDGE_CHUNK)
+        y.index_add_(0, rows[e], weight[e, None] * x[indices[e].long()])
+    return y
 
 
 def _check(indptr, indices, weight, x) -> None:

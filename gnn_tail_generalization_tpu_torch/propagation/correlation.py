@@ -58,9 +58,12 @@ def general_outcome_correlation(
     adj: Graph, y: torch.Tensor, alpha: float, num_propagations: int,
     post_step: Callable[[torch.Tensor], torch.Tensor],
     alpha_term: bool = True, spmm_method: str = "auto",
+    start: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """outcome_correlation.py:128-145."""
-    result = y
+    """outcome_correlation.py:128-145. ``start``: the first ``result``
+    where it is not ``y`` (the edge-LP YAG loop starts from the sigmoid
+    scores and pulls toward its guidance)."""
+    result = y if start is None else start
     with torch.no_grad():
         for _ in range(num_propagations):
             result = alpha * spmm(adj, result, spmm_method)

@@ -24,6 +24,9 @@ import torch
 from torch import nn
 
 from ..config import Config
+from ..linkpred import encoders as lp_enc
+from ..linkpred import predictors as lp_pred
+from ..linkpred.model import LinkPredConfig, LinkPredModel
 from ..models.semlp import GraphMLP, SEMLPPart1, SEMLPPart2, StudentBaseMLP
 from ..models.teacher import TeacherGNN
 from ..nn.backbone import TricksCombBackbone
@@ -78,6 +81,19 @@ def _child(module: nn.Module, name: str) -> Optional[str]:
         return "net" if name in ("MLP_0", "BlockResMLP_0") else None
     if isinstance(module, GraphMLP):
         return {"MLP_0": "mlp", "Dense_0": "out"}.get(name)
+    if isinstance(module, LinkPredModel):
+        return name if name in ("encoder", "predictor") else None
+    if isinstance(module, lp_enc.GNNEncoder):
+        return f"layers.{i}"  # SAGEConv_i, GCNConvRaw_i, ..., or Dense_i
+    if isinstance(module, lp_enc.SAGEConv):  # and WSAGEConv
+        return {"Dense_0": "root", "Dense_1": "neigh"}.get(name)
+    if isinstance(module, lp_enc.GCNConvRaw):
+        return "lin" if name == "Dense_0" else None
+    if isinstance(module, lp_enc.TransformerConv):
+        return {"Dense_0": "query", "Dense_1": "key", "Dense_2": "value",
+                "Dense_3": "skip"}.get(name)
+    if isinstance(module, (lp_pred.BilinearPredictor, lp_pred._Tower)):
+        return f"dense.{i}" if kind == "Dense" else None
     return None
 
 
@@ -133,4 +149,15 @@ def params_from_jax(flat: Mapping[str, np.ndarray], cfg: Config,
     flat = {**flat, **(batch_stats or {})}
     with torch.device("meta"):  # names and shapes only, no memory
         model = TeacherGNN(cfg)
+    return state_dict_from_flax(flat, model)
+
+
+def linkpred_params_from_jax(flat: Mapping[str, np.ndarray],
+                             cfg: LinkPredConfig, n_node: int,
+                             num_node_feats: int) -> Dict[str, torch.Tensor]:
+    """The state_dict of ``LinkPredModel(cfg, n_node, num_node_feats)``
+    holding the flax ``LinkPredModel`` parameters ``flat`` (every encoder
+    kind and predictor, with or without ``node_emb``)."""
+    with torch.device("meta"):
+        model = LinkPredModel(cfg, n_node, num_node_feats)
     return state_dict_from_flax(flat, model)

@@ -1,6 +1,8 @@
 """The PyTorch port's host-side code against the JAX package's: config chain,
-synthetic generators, edge pipeline, degree analysis, CSR and degrees —
-exact equality — and a subprocess proving the port imports no JAX."""
+synthetic generators, edge pipeline, degree analysis, CSR and degrees, GCN
+weights and link prediction's host parts (edge keys, the non-edge sampler,
+the membership table, surgery, heuristics, cal_recall) — exact equality —
+and a subprocess proving the port imports no JAX."""
 import ast
 import dataclasses
 import os
@@ -165,6 +167,125 @@ def test_load_dataset_synthetic_and_raw_files(tmp_path):
         tds.load_dataset(dataclasses.replace(cfg, dataset="nope"), None)
 
 
+def _surgery_graph(rng, js, n=200, e=1000):
+    """tests/test_surgery.py's graph, as a GraphData of the module ``js``."""
+    src, dst = rng.integers(0, n, e), rng.integers(0, n, e)
+    keep = src != dst
+    m = int(keep.sum())
+    return js.GraphData(x=rng.normal(size=(n, 8)).astype(np.float32),
+                        edge_index=np.stack([src[keep], dst[keep]]),
+                        node_year=rng.integers(2010, 2019, n),
+                        edge_year=rng.integers(2010, 2019, m),
+                        keys=np.arange(n))
+
+
+def assert_same_split(got, want):
+    assert got.keys() == want.keys()
+    for s in want:
+        assert got[s].keys() == want[s].keys()
+        for k in want[s]:
+            np.testing.assert_array_equal(got[s][k], want[s][k], err_msg=f"{s}/{k}")
+
+
+def test_gcn_norm_weights_matches(rng):
+    n = 300
+    e = jcore.add_self_loops(jcore.remove_self_loops(jcore.symmetrize(
+        np.stack([rng.integers(0, n, 1200), rng.integers(0, n, 1200)]), n)), n)
+    np.testing.assert_array_equal(tcore.gcn_norm_weights(e, n),
+                                  jcore.gcn_norm_weights(e, n))
+
+
+def test_edge_keys_sampler_and_membership_match(rng):
+    from gnn_tail_generalization_tpu.linkpred import sampling as js
+    from gnn_tail_generalization_tpu_torch.linkpred import sampling as ts
+
+    n = 2_927_963  # ids up to the citation2 shape: the int32 hash wraps
+    e = np.stack([rng.integers(0, n, 5000), rng.integers(n - 3000, n, 5000)])
+    keys = ts.edge_keys(e, n)
+    np.testing.assert_array_equal(keys, js.edge_keys(e, n))
+    np.testing.assert_array_equal(
+        ts.rejection_sample_non_edges(np.random.default_rng(3), keys, n, 4000),
+        js.rejection_sample_non_edges(np.random.default_rng(3), keys, n, 4000))
+    for slots in (8, 1):
+        tm, jm = ts.build_membership(keys, slots), js.build_membership(keys, slots)
+        np.testing.assert_array_equal(tm.buckets.numpy(), np.asarray(jm.buckets))
+        np.testing.assert_array_equal(tm.spill.numpy(), np.asarray(jm.spill))
+
+
+@pytest.mark.parametrize("module", ["surgery", "heuristics"])
+def test_linkpred_host_copies_match_the_originals(module):
+    """linkpred/surgery.py and heuristics.py are copies (importing the
+    originals runs the JAX package's __init__): the code after the docstring
+    is the original's."""
+    port = os.path.join(REPO, "gnn_tail_generalization_tpu_torch", "linkpred",
+                        f"{module}.py")
+    orig = os.path.join(REPO, "gnn_tail_generalization_tpu", "linkpred",
+                        f"{module}.py")
+    assert _without_docstring(port) == _without_docstring(orig)
+
+
+@pytest.mark.parametrize("by,setting", [
+    ("node", s) for s in ("t2t", "u2t", "i2t", "s", "i")] + [
+    ("edge", s) for s in ("t2t", "u2t", "i2t", "s", "i")] + [("cold", "i2t")])
+def test_transfer_surgery_matches(by, setting):
+    from gnn_tail_generalization_tpu.linkpred import surgery as js
+    from gnn_tail_generalization_tpu_torch.linkpred import surgery as ts
+
+    out = []
+    for mod in (ts, js):
+        g = _surgery_graph(np.random.default_rng(7), mod)
+        if by == "edge":
+            out.append(mod.transfer_surgery_edge_year(g, setting, lo=2013, hi=2016))
+        else:
+            out.append(mod.transfer_surgery_node_year(
+                g, setting, lo=2013, hi=2016, exp_on_cold_edge=by == "cold"))
+    (tg, tse), (jg, jse) = out
+    assert_same_fields(tg, jg)
+    assert_same_split(tse, jse)
+
+
+def test_split_helpers_match(rng):
+    from gnn_tail_generalization_tpu.linkpred import surgery as js
+    from gnn_tail_generalization_tpu_torch.linkpred import surgery as ts
+
+    g1, g2 = (_surgery_graph(np.random.default_rng(s), ts, n=40, e=90) for s in (1, 2))
+    j1, j2 = (_surgery_graph(np.random.default_rng(s), js, n=40, e=90) for s in (1, 2))
+    for a, b, keys in ((g1, j1, np.arange(0, 40)), (g2, j2, np.arange(25, 65))):
+        a.keys = b.keys = keys
+    assert_same_fields(ts.cal_union(g1, g2), js.cal_union(j1, j2))
+    assert_same_fields(ts.target_seeded_by_source(g1, g2),
+                       js.target_seeded_by_source(j1, j2))
+    unique = rng.random(40) < 0.5
+    g1.is_unique_in_targetG_mask = j1.is_unique_in_targetG_mask = unique
+    assert_same_split(ts.init_split_edge_unified(g1, seed=4),
+                      js.init_split_edge_unified(j1, seed=4))
+
+
+@pytest.mark.parametrize("name", ["CN", "AA", "PPR"])
+def test_heuristic_scores_match(rng, name):
+    from gnn_tail_generalization_tpu.linkpred import heuristics as jh
+    from gnn_tail_generalization_tpu_torch.linkpred import heuristics as th
+
+    n = 300
+    e = jcore.symmetrize(np.stack([rng.integers(0, n, 1500),
+                                   rng.integers(0, n, 1500)]), n)
+    pairs = np.stack([rng.integers(0, n, 400), rng.integers(0, n, 400)])
+    np.testing.assert_array_equal(th.heuristic_scores(name, e, n, pairs),
+                                  jh.heuristic_scores(name, e, n, pairs))
+
+
+def test_cal_recall_matches(rng):
+    from gnn_tail_generalization_tpu.linkpred import metrics as jm
+    from gnn_tail_generalization_tpu_torch.linkpred import metrics as tm
+
+    pos = rng.normal(size=300).astype(np.float32)
+    neg = rng.normal(size=900).astype(np.float32)
+    pos[:20] = neg[:20]  # ties across the two sets
+    for topk in (None, 0, 0.5, 1.25, 3, 10, 5000):
+        assert tm.cal_recall(torch.from_numpy(pos), torch.from_numpy(neg), topk) == \
+            jm.cal_recall(pos, neg, topk), topk
+
+
 _NO_JAX = r"""
 import sys
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "gnn_tail_generalization_tpu")
@@ -215,6 +336,30 @@ cfg = build_config(dataset="", train_which="LP", N_nodes=80, num_feats=12,
                    num_classes=3, force_set_to_best_config=False)
 cs = run_cs_pipeline(cfg, pd, epochs=2)
 assert np.isfinite(cs["out"].numpy()).all()
+import gnn_tail_generalization_tpu_torch.linkpred.edge_lp
+import gnn_tail_generalization_tpu_torch.linkpred.encoders
+import gnn_tail_generalization_tpu_torch.linkpred.heuristics
+import gnn_tail_generalization_tpu_torch.linkpred.losses
+import gnn_tail_generalization_tpu_torch.linkpred.metrics
+import gnn_tail_generalization_tpu_torch.linkpred.predictors
+import gnn_tail_generalization_tpu_torch.linkpred.sampling
+import gnn_tail_generalization_tpu_torch.utils.convert
+from gnn_tail_generalization_tpu_torch.data.synthetic import fast_powerlaw_graph
+from gnn_tail_generalization_tpu_torch.linkpred import model as lpm
+from gnn_tail_generalization_tpu_torch.linkpred import surgery
+g = surgery.GraphData(x=np.random.default_rng(0).normal(size=(300, 8)).astype(np.float32),
+                      edge_index=fast_powerlaw_graph(300, 1500, 0),
+                      node_year=np.random.default_rng(1).integers(2010, 2019, 300),
+                      keys=np.arange(300))
+g2, se = surgery.transfer_surgery_node_year(g, "i2t", drop_rate=0.0)
+for kw in (dict(encoder="GCN", edge_lp_mode="logit", eval_metric="mrr"),
+           dict(encoder="SAGE", use_node_feats=True, train_node_emb=False),
+           dict(encoder="CN", eval_metric="hits")):
+    cfg = lpm.LinkPredConfig(batch_size=256, gnn_hidden_channels=8,
+                             emb_hidden_channels=8, mlp_hidden_channels=8, **kw)
+    out = lpm.train_linkpred(cfg, g2.x, g2.edge_index, g2.n_node, epochs=1,
+                             split_edge=se)
+    assert np.isfinite(list(out["stats"].values())).all(), (kw, out["stats"])
 assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 print("NO_JAX_OK")
 """
