@@ -6,13 +6,21 @@ propagation and link-prediction paths on one CUDA card.
 Phases (any failure exits non-zero; nothing is caught):
 1. environment: the card's name and power limit, torch/CUDA/nvcc versions,
    and the build of the CUDA kernels (``gnn_tail_generalization_tpu_torch/
-   csrc/spmm_csr.cu``, built into ``gnn_tail_generalization_tpu_torch/_build/``);
-2. each kernel against its plain PyTorch version on the card: the bench-shape
-   power-law graph (169,343 nodes, 2,501,571 edges after the loader
-   pipeline), forward and transposed CSR, d=256 and d=40, the slice's own
-   graphs at d=256, and a hub-row case; max |kernel - plain| / max |plain|
-   must be <= 1e-5 (identical operands, only the summation order differs),
-   with kernel and plain times (median of CUDA-event timed runs);
+   csrc/*.cu``, built into ``gnn_tail_generalization_tpu_torch/_build/``);
+2. each kernel against its plain PyTorch version on the card, on each CSR's
+   row schedule: the bench-shape power-law graph (169,343 nodes, 2,501,571
+   edges after the loader pipeline), forward and transposed CSR, d=256 and
+   d=40, the slice's own graphs at d=256, a hub-row case at d=16, a
+   degree-boundary graph (rows of in-degree 0, T - 1, T, T + 1 and 2T + 1,
+   T the hub threshold) at d=256, 40, 16 and 33 (vector width 1), and a star
+   graph (one row of 1,000,000 in-edges) at d=256 and 40, forward and
+   transposed; max |kernel - plain| / max |plain| must be <= 1e-5
+   (identical operands, only the summation order differs). Each case prints
+   the kernel, plain and ``library_ms`` times (median of CUDA-event timed
+   runs; ``library_ms`` is ``torch.sparse.mm`` of a CSR tensor, cuSPARSE,
+   which the port never calls), ``bound_ms`` (``bound``) and the kernel's
+   share of it. Two launches on the bench graph must be bit-identical, and
+   a call without a schedule (built from ``indptr``) must equal one with;
 3. the slice: the port's ``main`` on ogbn-arxiv's shape (synthetic stand-in,
    169,343 nodes, 128 features, hidden 256, 40 classes), 3 epochs, once with
    ``--spmm_method=auto`` (f32 kernel) and once with ``pallas_bf16`` (bf16
@@ -64,7 +72,8 @@ Phases (any failure exits non-zero; nothing is caught):
    trainable [n, 256] embedding, the f32 kernel 4 per step + 2 per eval);
    (v) one step of each at dropout 0 through the kernels against the plain
    versions, loss and every gradient within the larger of 1e-5 and 4x the
-   plain step's own sum-order floor; (vi) GCN (the f32 kernel) and the
+   plain step's own sum-order floor (the kernels sum in another order than
+   the plain version, so no step is expected to be bit-identical); (vi) GCN (the f32 kernel) and the
    Transformer (no launch) at the bench shape; (vii) ``--exp_mode=I2_GTL
    --task=linkp`` through ``main`` (the 2,000-node stand-in, dense, no
    launch).
@@ -76,7 +85,6 @@ numbers under ``linkpred``), then as the last line
 import contextlib
 import copy
 import dataclasses
-import functools
 import json
 import statistics
 import subprocess
@@ -132,6 +140,7 @@ BENCH_NODES, BENCH_EDGES = 169_343, 1_166_243  # phase 2's bench shape
 EVAL_POS, EVAL_NEG, OGB_NEG = 8192, 50, 1000
 TIMED_STEPS = 16
 I2GTL_ARGS = ["--exp_mode=I2_GTL", "--task=linkp", "--device=cuda"]
+STAR_NODES, STAR_EDGES = 100_000, 1_000_000  # phase 2's star graph
 
 
 def log(msg: str) -> None:
@@ -158,26 +167,62 @@ def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
-def compare(name, fn, g, x, plain_bf16, card_name, tag, reps: int = 20):
-    """Kernel ``fn`` vs the plain version on ``g``'s CSR: (abs err, rel err,
-    kernel ms, plain ms). Fails when rel err > REL_TOL."""
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA's data sheet), at 700 W
+F32_FLOPS = 67e12  # f32 outside the tensor cores, the same sheet
+
+
+def bound(g, d: int, bf16: bool) -> tuple:
+    """(ms, what bounds it): the least time the card could take for y = A @ x
+    on ``g``'s CSR at width d. Bytes: every x row some edge reads (bf16 where
+    the kernel reads bf16), y in f32, indices, weights and indptr, each
+    once, over the HBM rate; operations: 2 flops an edge and column over
+    the f32 rate. The larger of the two."""
+    elem = 2 if bf16 else 4
+    n_src = int(torch.unique(g.indices).numel())
+    nbytes = (n_src * d * elem + g.n_node * d * 4 + g.n_edge * (4 + elem)
+              + (g.n_node + 1) * 4)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * g.n_edge * d / F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def library_fn(g, x, bf16: bool):
+    """One PyTorch call that computes the same product: torch.sparse.mm of a
+    CSR tensor (cuSPARSE), x and w already in the working type (its bf16
+    form returns bf16). Timed as a yardstick; the port never calls it."""
+    dt = torch.bfloat16 if bf16 else torch.float32
+    a = torch.sparse_csr_tensor(g.indptr, g.indices, g.weight.to(dt),
+                                size=(g.n_node, g.n_node), check_invariants=False)
+    xx = x.to(dt)
+    return lambda: torch.sparse.mm(a, xx)
+
+
+def compare(name, fn, g, x, plain_bf16, card_name, tag, reps: int = 20) -> dict:
+    """Kernel ``fn`` on ``g``'s CSR and row schedule against the plain
+    version: errors, kernel, plain and library ms, the bound and the
+    kernel's share of it. Fails when rel err > REL_TOL."""
     from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
 
     args = (g.indptr, g.indices, g.weight, x)
-    y = fn(*args)
+    y = fn(*args, schedule=g.schedule)
     torch.cuda.synchronize()
     y_ref = K.spmm_csr_plain(*args, bf16=plain_bf16)
     assert y.shape == y_ref.shape and y.dtype == torch.float32, (y.shape, y.dtype)
     abs_err = (y - y_ref).abs().max().item()
-    rel_err = abs_err / max(y_ref.abs().max().item(), 1e-30)
+    rel = abs_err / max(y_ref.abs().max().item(), 1e-30)
     del y, y_ref
-    ms = median_ms(lambda: fn(*args), reps=reps)
+    ms = median_ms(lambda: fn(*args, schedule=g.schedule), reps=reps)
     plain_ms = median_ms(lambda: K.spmm_csr_plain(*args, bf16=plain_bf16), reps=reps)
+    library_ms = median_ms(library_fn(g, x, plain_bf16), reps=reps)
+    bound_ms, bound_by = bound(g, x.shape[1], plain_bf16)
     log(f"  {name:14s} {tag:28s} d={x.shape[1]:3d} max_abs_err={abs_err:.3e} "
-        f"rel_err={rel_err:.3e} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-        f"[{card_name}]")
-    assert rel_err <= REL_TOL, f"{name} {tag}: rel err {rel_err} > {REL_TOL}"
-    return abs_err, rel_err, ms, plain_ms
+        f"rel_err={rel:.3e} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"library_ms={library_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}) "
+        f"share={bound_ms / ms:.3f} [{card_name}]")
+    assert rel <= REL_TOL, f"{name} {tag}: rel err {rel} > {REL_TOL}"
+    return {"max_abs_err": abs_err, "rel_err": rel, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "share_of_bound": bound_ms / ms}
 
 
 def hub_graph():
@@ -191,6 +236,35 @@ def hub_graph():
     e = np.stack([np.concatenate([src, rng.integers(0, n, 100)]),
                   np.concatenate([np.full(500, 7), rng.integers(0, n, 100)])])
     return build_graph(e, n, with_dense=False)
+
+
+def star_graph():
+    """Node 0 takes STAR_EDGES in-edges from random sources, plus random
+    light rows, over STAR_NODES nodes; unit weights."""
+    from gnn_tail_generalization_tpu_torch.graph.core import build_graph
+
+    rng = np.random.default_rng(1)
+    n, light = STAR_NODES, STAR_NODES * 5
+    e = np.stack([rng.integers(0, n, STAR_EDGES + light),
+                  np.concatenate([np.zeros(STAR_EDGES, np.int64),
+                                  rng.integers(1, n, light)])])
+    return build_graph(e, n, with_dense=False)
+
+
+def boundary_graph():
+    """Rows 0-4 of in-degree 0, T - 1, T, T + 1 and 2T + 1 (T the schedule's
+    hub threshold), then 2,000 rows of random in-degree 0-8; weights
+    normal."""
+    from gnn_tail_generalization_tpu_torch.graph.core import HUB_THRESHOLD as T
+    from gnn_tail_generalization_tpu_torch.graph.core import build_graph
+
+    rng = np.random.default_rng(2)
+    degs = np.concatenate([[0, T - 1, T, T + 1, 2 * T + 1], rng.integers(0, 9, 2000)])
+    n = degs.shape[0]
+    dst = np.repeat(np.arange(n), degs)
+    e = np.stack([rng.integers(0, n, dst.shape[0]), dst])
+    return build_graph(e, n, rng.normal(size=dst.shape[0]).astype(np.float32),
+                       with_dense=False)
 
 
 def slice_data():
@@ -589,9 +663,11 @@ def plain_kernels():
     its rounding), for the parity steps."""
     from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
 
+    def plain(bf16):
+        return lambda ip, ix, w, x, schedule=None: K.spmm_csr_plain(ip, ix, w, x, bf16=bf16)
+
     saved = K.spmm_csr_f32, K.spmm_csr_bf16
-    K.spmm_csr_f32 = K.spmm_csr_plain
-    K.spmm_csr_bf16 = functools.partial(K.spmm_csr_plain, bf16=True)
+    K.spmm_csr_f32, K.spmm_csr_bf16 = plain(False), plain(True)
     try:
         yield
     finally:
@@ -764,8 +840,8 @@ def linkpred_phase(card_name: str, totals: dict, dev) -> dict:
         x = torch.randn(gg.n_node, 256, generator=gen, device=dev)
         for name, fn, bf16 in (("spmm_csr_f32", K.spmm_csr_f32, False),
                                ("spmm_csr_bf16", K.spmm_csr_bf16, True)):
-            a, r, ms, pms = compare(name, fn, gg, x, bf16, card_name, tag, reps=5)
-            kernel_ms[f"{name} {tag}"] = {"rel_err": r, "ms": ms, "plain_ms": pms}
+            kernel_ms[f"{name} {tag}"] = compare(name, fn, gg, x, bf16, card_name, tag,
+                                                 reps=5)
         del x
     torch.cuda.empty_cache()
 
@@ -870,26 +946,51 @@ def main() -> int:
     log(f"slice graph: n_node={pd.graph.n_node} n_edge={pd.graph.n_edge}; "
         f"loss-masked view n_edge={g_last.n_edge}")
     gen = torch.Generator(device=dev).manual_seed(0)
+    bg, sg = boundary_graph(), star_graph()
+    log(f"degree-boundary graph: n_node={bg.n_node} n_edge={bg.n_edge}; star graph: "
+        f"n_node={sg.n_node} n_edge={sg.n_edge}, {STAR_EDGES} edges into node 0")
     graphs = [("bench fwd", gb.to(dev), (256, 40)),
               ("bench transposed", gb.transpose().to(dev), (256, 40)),
               ("slice fwd", pd.graph.to(dev), (256,)),
               ("slice transposed", pd.graph.transpose().to(dev), (256,)),
               ("slice loss-masked fwd", g_last.to(dev), (256,)),
               ("slice loss-masked transp.", g_last.transpose().to(dev), (256,)),
-              ("hub rows", hub_graph().to(dev), (16,))]
+              ("hub rows", hub_graph().to(dev), (16,)),
+              ("degree boundary fwd", bg.to(dev), (256, 40, 16, 33)),
+              ("degree boundary transp.", bg.transpose().to(dev), (256, 40, 16, 33)),
+              ("star fwd", sg.to(dev), (256, 40)),
+              ("star transposed", sg.transpose().to(dev), (256, 40))]
+    kernels = (("spmm_csr_f32", K.spmm_csr_f32, False),
+               ("spmm_csr_bf16", K.spmm_csr_bf16, True))
     stats = {k: {"max_abs_err": 0.0, "max_rel_err": 0.0} for k in KERNELS}
     for tag, g, widths in graphs:
         for d in widths:
-            x = torch.randn(g.n_node, d, generator=gen, device=dev)
-            for name, fn, bf16 in (("spmm_csr_f32", K.spmm_csr_f32, False),
-                                   ("spmm_csr_bf16", K.spmm_csr_bf16, True)):
-                a, r, ms, pms = compare(name, fn, g, x, bf16, card_name, tag)
+            if tag.startswith("star"):
+                # multiples of 1/8 in [-1, 1]: every partial sum of the
+                # 1M-edge row is exact in f32, in any order
+                x = torch.randint(-8, 9, (g.n_node, d), generator=gen, device=dev) / 8
+            else:
+                x = torch.randn(g.n_node, d, generator=gen, device=dev)
+            for name, fn, bf16 in kernels:
+                r = compare(name, fn, g, x, bf16, card_name, tag)
                 st = stats[name]
-                st["max_abs_err"] = max(st["max_abs_err"], a)
-                st["max_rel_err"] = max(st["max_rel_err"], r)
+                st["max_abs_err"] = max(st["max_abs_err"], r["max_abs_err"])
+                st["max_rel_err"] = max(st["max_rel_err"], r["rel_err"])
                 if tag == "bench fwd" and d == 256:
-                    st["ms"], st["plain_ms"] = ms, pms
-    del graphs, gb
+                    st.update({k: r[k] for k in ("ms", "plain_ms", "library_ms",
+                                                 "bound_ms", "bound_by", "share_of_bound")})
+                    again = [fn(g.indptr, g.indices, g.weight, x, schedule=g.schedule)
+                             for _ in range(2)]
+                    same = torch.equal(*again)
+                    log(f"  {name:14s} two launches on the bench graph bit-identical: {same}")
+                    assert same, f"{name}: two launches differ"
+                if tag == "degree boundary fwd" and d == 40:
+                    direct = fn(g.indptr, g.indices, g.weight, x)  # builds its schedule
+                    same = torch.equal(direct, fn(g.indptr, g.indices, g.weight, x,
+                                                  schedule=g.schedule))
+                    log(f"  {name:14s} call without a schedule bit-identical: {same}")
+                    assert same, f"{name}: the schedule built from indptr differs"
+    del graphs, gb, bg, sg
     torch.cuda.empty_cache()
 
     log("== phase 3: the slice through the port's main")
@@ -930,10 +1031,7 @@ def main() -> int:
 
     assert totals["spmm_csr_plain"] == 0, totals
     kernels = [{"name": name, "route": "cuda", "source": SOURCE,
-                "replaces": KERNELS[name], "launches": totals[name],
-                "max_abs_err": stats[name]["max_abs_err"],
-                "max_rel_err": stats[name]["max_rel_err"],
-                "ms": stats[name]["ms"], "plain_ms": stats[name]["plain_ms"]}
+                "replaces": KERNELS[name], "launches": totals[name], **stats[name]}
                for name in KERNELS]
     print(json.dumps({"kernels": kernels, "step_ms": step_ms,
                       "student": student, "trick_step_ms": tricks,

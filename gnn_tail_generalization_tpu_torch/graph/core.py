@@ -22,6 +22,67 @@ import numpy as np
 import torch
 
 
+#: in-degree above which a row is a hub row: the CUDA SpMM kernels cut its
+#: edges into chunks of at most this many, each summed by a block of its
+#: own (csrc/spmm_csr.cu; PERF.md says why 64)
+HUB_THRESHOLD = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class RowSchedule:
+    """How the CUDA SpMM kernels split one CSR's rows, built from its
+    ``indptr`` alone (``build_schedule``).
+
+    Rows of in-degree <= ``threshold`` are light: a group of lanes sums each
+    one whole, in CSR order. ``hub_rows`` [n_hub] int32 are the others,
+    ascending. Hub ``h`` owns chunks ``hub_chunk_ptr[h]`` to
+    ``hub_chunk_ptr[h + 1]``; chunk ``c`` is the CSR edges
+    ``chunk_bounds[c, 0]`` to ``chunk_bounds[c, 1]``, at most ``threshold``
+    consecutive ones. Each chunk's sum is written to its own row of a
+    scratch, and a hub row is the sum of its chunks in chunk order, so the
+    order of every sum follows from the schedule alone."""
+
+    hub_rows: torch.Tensor  # [n_hub] int32
+    hub_chunk_ptr: torch.Tensor  # [n_hub + 1] int32
+    chunk_bounds: torch.Tensor  # [n_chunks, 2] int32
+    threshold: int
+
+    @property
+    def n_hub(self) -> int:
+        return self.hub_rows.shape[0]
+
+    @property
+    def n_chunks(self) -> int:
+        return self.chunk_bounds.shape[0]
+
+    def to(self, device) -> "RowSchedule":
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name).to(device)
+            for f in dataclasses.fields(self)
+            if isinstance(getattr(self, f.name), torch.Tensor)})
+
+
+def build_schedule(indptr, threshold: int = HUB_THRESHOLD) -> RowSchedule:
+    """The ``RowSchedule`` of a CSR with row pointers ``indptr`` ([R + 1],
+    numpy or a CPU tensor)."""
+    if threshold < 1:
+        raise ValueError(f"threshold must be >= 1, got {threshold}")
+    ip = np.asarray(indptr, np.int64)
+    deg = np.diff(ip)
+    hub_rows = np.flatnonzero(deg > threshold)
+    per_hub = -(-deg[hub_rows] // threshold)
+    chunk_ptr = np.zeros(hub_rows.shape[0] + 1, np.int64)
+    np.cumsum(per_hub, out=chunk_ptr[1:])
+    owner = np.repeat(np.arange(hub_rows.shape[0]), per_hub)
+    start = ip[hub_rows][owner] + (np.arange(owner.shape[0]) - chunk_ptr[owner]) * threshold
+    end = np.minimum(start + threshold, ip[hub_rows + 1][owner])
+    as_t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32))  # noqa: E731
+    return RowSchedule(
+        hub_rows=as_t(hub_rows), hub_chunk_ptr=as_t(chunk_ptr),
+        chunk_bounds=as_t(np.stack([start, end], axis=1).reshape(-1, 2)),
+        threshold=threshold)
+
+
 @dataclasses.dataclass(frozen=True)
 class Graph:
     """Immutable CSR graph. Row ``r`` of the forward CSR holds the edges into
@@ -41,7 +102,12 @@ class Graph:
     ``t_from_fwd`` maps the transposed CSR's edges to the forward ones
     (``weight_t == weight[t_from_fwd]``) and ``fwd_from_t`` is its inverse,
     so a per-edge mask over the forward order also masks the transposed
-    weights (nn/graph_dropout.py)."""
+    weights (nn/graph_dropout.py).
+
+    ``schedule`` and ``schedule_t`` split the rows of the forward and the
+    transposed CSR for the CUDA kernels (``RowSchedule``); they depend on
+    the row pointers only, so a reweighted graph keeps them. Without one
+    the kernel wrapper builds it from ``indptr`` on every call."""
 
     indptr: torch.Tensor  # [N + 1] int32
     indices: torch.Tensor  # [E] int32 source ids
@@ -57,6 +123,8 @@ class Graph:
     n_node: int
     n_edge: int
     has_plans: bool = False
+    schedule: Optional[RowSchedule] = None
+    schedule_t: Optional[RowSchedule] = None
 
     def transpose(self) -> "Graph":
         """The reversed-edge graph."""
@@ -67,12 +135,13 @@ class Graph:
             deg_out=self.deg_in, deg_in=self.deg_out,
             dense_adj=None if self.dense_adj is None else self.dense_adj.T,
             n_node=self.n_node, n_edge=self.n_edge, has_plans=self.has_plans,
+            schedule=self.schedule_t, schedule_t=self.schedule,
         )
 
     def to(self, device) -> "Graph":
         moved = {f.name: getattr(self, f.name).to(device)
                  for f in dataclasses.fields(self)
-                 if isinstance(getattr(self, f.name), torch.Tensor)}
+                 if isinstance(getattr(self, f.name), (torch.Tensor, RowSchedule))}
         return dataclasses.replace(self, **moved)
 
 
@@ -225,6 +294,8 @@ def build_graph(
         fwd_from_t=torch.from_numpy(fwd_from_t),
         deg_out=torch.from_numpy(deg_out), deg_in=torch.from_numpy(deg_in),
         dense_adj=dense, n_node=n_node, n_edge=n_edge, has_plans=with_plans,
+        schedule=build_schedule(indptr.numpy()),
+        schedule_t=build_schedule(indptr_t.numpy()),
     )
 
 

@@ -1,10 +1,11 @@
 """Build and load the CUDA kernels of ``csrc/`` as a plain-C shared library.
 
-``nvcc`` compiles ``csrc/spmm_csr.cu`` for ``sm_90a`` into
+``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into
 ``gnn_tail_generalization_tpu_torch/_build/`` at first use; the file name
-carries a hash of the source and the flags, so an edited source builds anew.
-The library is loaded with ``ctypes`` and its functions get their argument
-types here. Nothing is built or loaded when the module is imported.
+carries a hash of every source in ``csrc/`` (``*.cu`` and ``*.cuh``) and of
+the flags, so an edited source builds anew. The library is loaded with
+``ctypes`` and its functions get their argument types here. Nothing is
+built or loaded when the module is imported.
 """
 from __future__ import annotations
 
@@ -14,14 +15,20 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import List
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "spmm_csr.cu"
+CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 _lib = None
+
+
+def sources() -> List[Path]:
+    """Every kernel source and header, in a fixed order."""
+    return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
 
 
 def _nvcc() -> str:
@@ -34,8 +41,10 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    """Where the library for the current source and flags lives."""
-    h = hashlib.sha256(SOURCE.read_bytes())
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256()
+    for src in sources():
+        h.update(src.name.encode() + b"\0" + src.read_bytes() + b"\0")
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"libspmm_csr_{h.hexdigest()[:16]}.so"
 
@@ -47,7 +56,8 @@ def build() -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *(str(s) for s in sources() if s.suffix == ".cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
@@ -61,11 +71,17 @@ def load() -> ctypes.CDLL:
     points ``spmm_csr_f32`` and ``spmm_csr_bf16``."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        for fn in (lib.spmm_csr_f32, lib.spmm_csr_bf16):
-            # indptr, indices, w, x, y, n_rows, d, vec, stream
-            fn.argtypes = [p, p, p, p, p, i, i, i, p]
-            fn.restype = i
-        _lib = lib
+        _lib = bind(ctypes.CDLL(str(build())))
     return _lib
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Give a loaded kernel library's entry points their argument types."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for fn in (lib.spmm_csr_f32, lib.spmm_csr_bf16):
+        # indptr, indices, w, x, y, n_rows, d, vec, nv, group, hub_rows,
+        # hub_chunk_ptr, n_hub, chunk_bounds, n_chunks, threshold, partial,
+        # stream
+        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, p, p, i, p, i, i, p, p]
+        fn.restype = i
+    return lib

@@ -53,7 +53,7 @@ def _spmm_impl(g: Graph, x: torch.Tensor, method: str) -> torch.Tensor:
                 return torch.matmul(g.dense_adj, x)
             bf16 = False  # the JAX package's gather fallback runs in f32
         kernel = spmm_kernels.spmm_csr_bf16 if bf16 else spmm_kernels.spmm_csr_f32
-        return kernel(g.indptr, g.indices, g.weight, x)
+        return kernel(g.indptr, g.indices, g.weight, x, schedule=g.schedule)
     raise ValueError(f"unknown spmm method {method!r}; choose one of {METHODS}")
 
 

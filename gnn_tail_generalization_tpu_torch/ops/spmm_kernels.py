@@ -12,16 +12,22 @@
   ``y`` is f32.
 
 Both kernels live in ``csrc/spmm_csr.cu``; that file's header says what bounds
-them on the card and how the design answers it. On a CPU tensor each wrapper
-runs the plain version (``spmm_csr_plain``); on a CUDA tensor it launches its
-kernel or raises. ``LAUNCHES`` counts kernel launches per wrapper and calls of
-the plain version, so a run can show which one it went through.
+them on the card and how the design answers it. A CUDA call runs up to three
+kernels (light rows; hub-row chunks and their reduction) on a
+``graph.core.RowSchedule``, which ``ops/spmm.py`` passes from the graph; a
+direct call without one builds it from ``indptr`` (a host copy). On a CPU
+tensor each wrapper runs the plain version (``spmm_csr_plain``); on a CUDA
+tensor it launches its kernels or raises. ``LAUNCHES`` counts one per
+wrapper call that launched, and calls of the plain version, so a run can
+show which one it went through.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
-from ..graph.core import edge_rows
+from ..graph.core import RowSchedule, build_schedule, edge_rows
 
 LAUNCHES = {"spmm_csr_f32": 0, "spmm_csr_bf16": 0, "spmm_csr_plain": 0}
 
@@ -89,19 +95,52 @@ def _vec_width(d: int, x: torch.Tensor, widths) -> int:
     return 1
 
 
-def _launch(name: str, indptr, indices, weight, x, widths) -> torch.Tensor:
+def lane_layout(d: int, x: torch.Tensor, widths) -> tuple:
+    """(vec, nv, group) of the light-row kernel for rows of width ``d``:
+    each lane loads ``nv`` vectors of ``vec`` elements per edge (two where a
+    row has more than 32 vectors, so a warp covers d = 256 f32 in one pass),
+    and a row gets the smallest power-of-two group of lanes that covers it,
+    at most a warp; narrower rows share a warp."""
+    vec = _vec_width(d, x, widths)
+    n_vec = d // vec
+    nv = 1 if n_vec <= 32 else 2
+    lanes = max(1, -(-n_vec // nv))
+    return vec, nv, min(32, 1 << (lanes - 1).bit_length())
+
+
+def _check_schedule(s: RowSchedule, n_rows: int, device) -> None:
+    if s.hub_chunk_ptr.shape[0] != s.n_hub + 1 or s.n_hub > n_rows:
+        raise ValueError(f"schedule of {s.n_hub} hub rows and "
+                         f"{s.hub_chunk_ptr.shape[0]} chunk pointers for a CSR "
+                         f"of {n_rows} rows")
+    for name in ("hub_rows", "hub_chunk_ptr", "chunk_bounds"):
+        t = getattr(s, name)
+        if t.device != device or t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError(f"schedule.{name} must be contiguous int32 on {device}, "
+                             f"got {t.dtype} on {t.device}")
+
+
+def _launch(name: str, indptr, indices, weight, x, widths,
+            schedule: Optional[RowSchedule]) -> torch.Tensor:
     from . import _build
 
     lib = _build.load()
     n_rows, d = indptr.numel() - 1, x.shape[1]
+    if schedule is None:
+        schedule = build_schedule(indptr.cpu().numpy()).to(x.device)
+    _check_schedule(schedule, n_rows, x.device)
     y = torch.empty(n_rows, d, dtype=torch.float32, device=x.device)
-    vec = _vec_width(d, x, widths)
+    partial = torch.empty(schedule.n_chunks, d, dtype=torch.float32, device=x.device)
+    vec, nv, group = lane_layout(d, x, widths)
+    s = schedule
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         LAUNCHES[name] += 1
-        rc = getattr(lib, name)(indptr.data_ptr(), indices.data_ptr(),
-                                weight.data_ptr(), x.data_ptr(), y.data_ptr(),
-                                n_rows, d, vec, stream)
+        rc = getattr(lib, name)(
+            indptr.data_ptr(), indices.data_ptr(), weight.data_ptr(), x.data_ptr(),
+            y.data_ptr(), n_rows, d, vec, nv, group, s.hub_rows.data_ptr(),
+            s.hub_chunk_ptr.data_ptr(), s.n_hub, s.chunk_bounds.data_ptr(),
+            s.n_chunks, s.threshold, partial.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
     return y
@@ -116,22 +155,24 @@ def _on_cuda(x: torch.Tensor) -> bool:
 
 
 def spmm_csr_f32(indptr: torch.Tensor, indices: torch.Tensor,
-                 weight: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """f32 CSR SpMM: the CUDA kernel on a CUDA tensor, the plain version on
-    a CPU one."""
+                 weight: torch.Tensor, x: torch.Tensor,
+                 schedule: Optional[RowSchedule] = None) -> torch.Tensor:
+    """f32 CSR SpMM: the CUDA kernels on a CUDA tensor, the plain version on
+    a CPU one. ``schedule``: the CSR's ``RowSchedule`` on x's device."""
     if not _on_cuda(x):
         return spmm_csr_plain(indptr, indices, weight, x)
     _check(indptr, indices, weight, x)
     if x.dtype != torch.float32 or weight.dtype != torch.float32:
         raise TypeError(f"spmm_csr_f32 takes float32 x and weight, got "
                         f"{x.dtype} and {weight.dtype}")
-    return _launch("spmm_csr_f32", indptr, indices, weight, x, (4, 2, 1))
+    return _launch("spmm_csr_f32", indptr, indices, weight, x, (4, 2, 1), schedule)
 
 
 def spmm_csr_bf16(indptr: torch.Tensor, indices: torch.Tensor,
-                  weight: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+                  weight: torch.Tensor, x: torch.Tensor,
+                  schedule: Optional[RowSchedule] = None) -> torch.Tensor:
     """bf16-operand CSR SpMM with f32 accumulation and f32 output: the CUDA
-    kernel on a CUDA tensor, the plain version on a CPU one."""
+    kernels on a CUDA tensor, the plain version on a CPU one."""
     if not _on_cuda(x):
         return spmm_csr_plain(indptr, indices, weight, x, bf16=True)
     _check(indptr, indices, weight, x)
@@ -140,4 +181,4 @@ def spmm_csr_bf16(indptr: torch.Tensor, indices: torch.Tensor,
                         f"{x.dtype} and {weight.dtype}")
     xb = x.to(torch.bfloat16)  # RTNE, as the TPU kernel's cast
     wb = weight.to(torch.bfloat16)
-    return _launch("spmm_csr_bf16", indptr, indices, wb, xb, (8, 4, 2, 1))
+    return _launch("spmm_csr_bf16", indptr, indices, wb, xb, (8, 4, 2, 1), schedule)

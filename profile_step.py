@@ -12,9 +12,10 @@ is one train step (forward, backward, Adam) and one eval-mode forward.
 From the profiled run's device events (the chrome trace, written to
 ``--out``) it prints, per route:
 
-- device ms by class: the SpMM kernel, GEMMs, host<->device copies, and all
-  other kernels (elementwise passes, reductions, casts), with their shares
-  of the device time;
+- device ms by class: the SpMM kernels (every kernel the SpMM wrappers
+  launch: light rows, hub chunks, their reduction), GEMMs, host<->device
+  copies, and all other kernels (elementwise passes, reductions, casts),
+  with their shares of the device time, and the SpMM launches by kernel;
 - the busy share of the device over the training loop, from its first
   kernel to its last device event (the set-up copies of ``train_teacher``
   come before that window); the idle share is one minus it;
@@ -37,6 +38,9 @@ import torch
 SLICE_ARGS = ["--dataset=ogbn-arxiv", "--train_which=TeacherGNN",
               "--device=cuda", "--log_every=0"]
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+#: the SpMM wrappers' kernels (csrc/spmm_csr.cu): light rows, hub chunks and
+#: their reduction
+SPMM_KERNEL = re.compile(r"\bspmm_\w+_kernel\b")
 
 
 def card() -> str:
@@ -48,7 +52,7 @@ def card() -> str:
 def op_class(cat: str, name: str) -> str:
     if cat != "kernel":
         return "copies" if cat == "gpu_memcpy" else "memset"
-    if "spmm_csr_kernel" in name:
+    if SPMM_KERNEL.search(name):
         return "spmm"
     if re.search(r"gemm|cutlass|cublas", name, re.I):
         return "gemm"
@@ -84,6 +88,11 @@ def summarize(trace_path: str) -> dict:
         by_class[op_class(e["cat"], e["name"])] += e["dur"] / 1e3
         by_kernel[e["name"]] += e["dur"] / 1e3
         launches[e["name"]] += 1
+    spmm_launches = collections.Counter()  # by kernel, over its instances
+    for k, n in launches.items():
+        m = SPMM_KERNEL.search(k)
+        if m:
+            spmm_launches[m.group(0)] += n
     total = sum(by_class.values())
     t0 = min(e["ts"] for e in events if e["cat"] == "kernel")
     loop = [(e["ts"], e["ts"] + e["dur"]) for e in events if e["ts"] >= t0]
@@ -96,8 +105,7 @@ def summarize(trace_path: str) -> dict:
         "loop_span_ms": span,
         "loop_busy_ms": busy,
         "loop_idle_share": 1.0 - busy / span,
-        "spmm_launches": sum(n for k, n in launches.items()
-                             if "spmm_csr_kernel" in k),
+        "spmm_launches": dict(spmm_launches),
         "top_kernels": [(k[:70], v, launches[k])
                         for k, v in by_kernel.most_common(12)],
     }
@@ -134,6 +142,7 @@ def main() -> int:
               f"idle share {s['loop_idle_share']:.4f}")
         for k, v in sorted(s["by_class_ms"].items(), key=lambda kv: -kv[1]):
             print(f"  {k:14s} {v:9.3f} ms  {100 * s['share'][k]:5.1f}%")
+        print(f"  spmm launches {s['spmm_launches']}")
         for name, ms, n in s["top_kernels"]:
             print(f"    {ms:9.3f} ms {n:5d}x  {name}")
         print(f"  step_ms {[round(t, 3) for t in s['step_ms']]}")

@@ -147,12 +147,22 @@ def test_spmm_rejects_x_of_the_wrong_rows(rng, method, shape):
     assert tspmm.spmm(g, torch.ones(4, 3), method).shape == (4, 3)
 
 
+F32, BF16 = (4, 2, 1), (8, 4, 2, 1)
+
+
 @pytest.mark.parametrize("d,elem,widths,expect", [
-    (256, 4, (4, 2, 1), 4), (40, 4, (4, 2, 1), 4), (6, 4, (4, 2, 1), 2),
-    (5, 4, (4, 2, 1), 1), (256, 2, (8, 4, 2, 1), 8), (12, 2, (8, 4, 2, 1), 4)])
+    # (vec, nv, group) of the light-row kernel: a warp covers d = 256 in one
+    # pass (8 values a lane); narrower rows share a warp
+    (1, 4, F32, (1, 1, 1)), (3, 4, F32, (1, 1, 4)), (16, 4, F32, (4, 1, 4)),
+    (40, 4, F32, (4, 1, 16)), (128, 4, F32, (4, 1, 32)), (256, 4, F32, (4, 2, 32)),
+    (6, 4, F32, (2, 1, 4)), (5, 4, F32, (1, 1, 8)), (512, 4, F32, (4, 2, 32)),
+    (1, 2, BF16, (1, 1, 1)), (3, 2, BF16, (1, 1, 4)), (16, 2, BF16, (8, 1, 2)),
+    (40, 2, BF16, (8, 1, 8)), (128, 2, BF16, (8, 1, 16)), (256, 2, BF16, (8, 1, 32)),
+    (12, 2, BF16, (4, 1, 4))])
 def test_vector_width(d, elem, widths, expect):
     x = torch.empty(3, d, dtype=torch.float32 if elem == 4 else torch.bfloat16)
-    assert K._vec_width(d, x, widths) == expect
+    assert K._vec_width(d, x, widths) == expect[0]
+    assert K.lane_layout(d, x, widths) == expect
     # a view that starts off the 16-byte grid takes narrower loads
     assert K._vec_width(d, x.view(-1)[1:].view(-1)[: d], widths) == 1
 
@@ -163,12 +173,24 @@ def test_build_needs_nvcc_and_hashes_source(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "_build")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build()
+    assert [p.name for p in _build.sources()] == ["spmm_csr.cu"]
+    p0 = _build.library_path()
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    (csrc / "a.cu").write_text("// one source\n")
+    (csrc / "notes.txt").write_text("not a source\n")
     p1 = _build.library_path()
-    src = tmp_path / "k.cu"
-    src.write_text("// other source\n")
-    monkeypatch.setattr(_build, "SOURCE", src)
-    assert _build.library_path() != p1
-    assert _build.library_path().parent == tmp_path / "_build"
+    assert p1 != p0 and p1.parent == tmp_path / "_build"
+    assert [p.name for p in _build.sources()] == ["a.cu"]
+    (csrc / "b.cuh").write_text("// a header\n")  # every source and header counts
+    p2 = _build.library_path()
+    assert p2 != p1 and [p.name for p in _build.sources()] == ["a.cu", "b.cuh"]
+    (csrc / "b.cuh").write_text("// the header, edited\n")
+    assert _build.library_path() not in (p1, p2)
+    (csrc / "notes.txt").write_text("edited, still not a source\n")
+    (csrc / "b.cuh").write_text("// a header\n")
+    assert _build.library_path() == p2
 
 
 def test_graph_to_moves_every_tensor(rng):
