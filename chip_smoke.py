@@ -76,19 +76,40 @@ Phases (any failure exits non-zero; nothing is caught):
    the plain version, so no step is expected to be bit-identical); (vi) GCN (the f32 kernel) and the
    Transformer (no launch) at the bench shape; (vii) ``--exp_mode=I2_GTL
    --task=linkp`` through ``main`` (the 2,000-node stand-in, dense, no
-   launch).
+   launch);
+8. the rest of the single-device CLI: (i) a full-size fake ogbn-arxiv raw
+   set (169,343 nodes, 1,166,243 edges, 128 features, 40 classes) written to
+   a directory under ``_chip/``, read through ``load_dataset`` (the reader
+   must fire, not the stand-in), prepared, and trained 3 epochs through
+   ``main --data_root`` under ``auto``, with the write, read and prepare
+   seconds and exactly 6 f32 launches an epoch; (ii) ``--exp_mode=I2_GTL
+   --task=nodeC`` on the arxiv slice under ``auto`` and ``pallas_bf16``, 3
+   epochs: exactly 2 + 1 launches a layer an epoch of the method's kernel
+   (no loss-masked view under the edgewise loss), MRR columns in (0, 1],
+   step ms beside phase 3's, and one step through the f32 kernel against
+   the plain version with fixed pairs at dropout 0 (loss and every
+   gradient, ``check_step_parity``'s rule with the sum-order floor);
+   (iii) ``spmm_edge_grad`` on the bench-shape graph at d=256: y, dx and dw
+   against the plain version (1e-5 relative) and forward + backward ms;
+   (iv) ``--N_exp=3`` through ``main`` (``train/multiseed.py``): each seed's
+   records bit-identical to ``train_teacher`` from that seed; (v) a
+   ``save_dir`` checkpoint read back onto the card gives a bit-identical
+   eval forward, and a ``--prog`` run repeated skips its done cell.
 
 Prints the kernels' JSON line (launches summed over every phase; phase 7's
-numbers under ``linkpred``), then as the last line
+numbers under ``linkpred``, phase 8's under ``cli``), then as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 import contextlib
 import copy
 import dataclasses
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -141,6 +162,10 @@ EVAL_POS, EVAL_NEG, OGB_NEG = 8192, 50, 1000
 TIMED_STEPS = 16
 I2GTL_ARGS = ["--exp_mode=I2_GTL", "--task=linkp", "--device=cuda"]
 STAR_NODES, STAR_EDGES = 100_000, 1_000_000  # phase 2's star graph
+# phase 8: the reader-fed teacher, the I2-GTL teacher, multi-seed, --prog
+READER_ARGS = SLICE_ARGS + ["--spmm_method=auto"]
+I2GTL_NODEC_ARGS = SLICE_ARGS + ["--exp_mode=I2_GTL", "--task=nodeC"]
+N_EXP = 3
 
 
 def log(msg: str) -> None:
@@ -276,19 +301,20 @@ def slice_data():
         build_config(**port_main.parse_args(SLICE_ARGS)[0]), "data")
 
 
-def step_grads(model, cfg, g, g_last, x, y, mask):
-    """Loss and gradients of one train-mode step (no optimizer update);
-    graph-dropout masks, where the config draws them, from a generator
-    seeded 0."""
-    from gnn_tail_generalization_tpu_torch.train.loops import _nll_masked
+def step_grads(model, cfg, g, g_last, x, y, mask, pairs=None):
+    """Loss and gradients of one train-mode step (no optimizer update), the
+    loss as ``train_teacher``'s; graph-dropout masks, where the config draws
+    them, from a generator seeded 0; the edgewise loss, where the config has
+    it, on the fixed ``pairs``."""
+    from gnn_tail_generalization_tpu_torch.train.edgewise import score_pairs
+    from gnn_tail_generalization_tpu_torch.train.loops import teacher_loss
 
     model.train()
     model.zero_grad(set_to_none=True)
     graph_gen = torch.Generator(device=x.device).manual_seed(0)
-    _, classi, se_reg, _ = model(g, x, g_last=g_last, graph_generator=graph_gen)
-    loss = _nll_masked(classi, y, mask)
-    if se_reg is not None:
-        loss = loss + cfg.se_reg * se_reg
+    common, classi, se_reg, _ = model(g, x, g_last=g_last, graph_generator=graph_gen)
+    l_struct = None if pairs is None else score_pairs(common, pairs)[0]
+    loss = teacher_loss(cfg, classi, se_reg, y, mask, l_struct)
     loss.backward()
     return loss.item(), {k: p.grad.detach().clone()
                          for k, p in model.named_parameters()}
@@ -309,7 +335,7 @@ def reordered_graph(pd):
                        with_plans=pd.graph.has_plans)
 
 
-def check_step_parity(cfg, pd, order_floor: bool = False):
+def check_step_parity(cfg, pd, order_floor: bool = False, pairs=None):
     """One step at dropout 0 from fixed weights: f32 kernel vs the plain
     version (spmm method 'gather' calls it directly), within REL_TOL in loss
     and every gradient. Under graph dropout both steps draw their masks from
@@ -318,7 +344,8 @@ def check_step_parity(cfg, pd, order_floor: bool = False):
     ``order_floor``: also run the plain step on ``reordered_graph`` and hold
     each quantity to the larger of REL_TOL and 4x the difference that the
     reordering alone makes — for steps whose f32 result depends on the sum
-    order by more than REL_TOL (GroupNorm's score gradient, PERF.md)."""
+    order by more than REL_TOL (GroupNorm's score gradient, PERF.md).
+    ``pairs``: the fixed pairs of the edgewise loss (exp_mode=I2_GTL)."""
     from gnn_tail_generalization_tpu_torch.models.teacher import TeacherGNN
     from gnn_tail_generalization_tpu_torch.nn import graph_dropout as gd
     from gnn_tail_generalization_tpu_torch.train.loops import final_agg_view
@@ -346,9 +373,9 @@ def check_step_parity(cfg, pd, order_floor: bool = False):
     gd.per_layer_edge_masks = record
     try:
         loss_k, grads_k = step_grads(kernel_model.to(dev), cfg_k, g, g_last,
-                                     x, y, mask)
+                                     x, y, mask, pairs)
         loss_p, grads_p = step_grads(plain_model.to(dev), cfg_k, g, g_last,
-                                     x, y, mask)
+                                     x, y, mask, pairs)
     finally:
         gd.per_layer_edge_masks = draw
     if cfg.apply_graph_dropout:
@@ -360,7 +387,8 @@ def check_step_parity(cfg, pd, order_floor: bool = False):
     if order_floor:
         assert g_last is None and not cfg.apply_graph_dropout
         loss_f, grads_f = step_grads(floor_model.to(dev), cfg_k,
-                                     reordered_graph(pd).to(dev), None, x, y, mask)
+                                     reordered_graph(pd).to(dev), None, x, y, mask,
+                                     pairs)
         floors = {k: rel_err(grads_f[k], grads_p[k]) for k in grads_p}
         floors["loss"] = abs(loss_f - loss_p) / abs(loss_p)
     worst = abs(loss_k - loss_p) / abs(loss_p)
@@ -905,6 +933,226 @@ def linkpred_phase(card_name: str, totals: dict, dev) -> dict:
             "parity": parity, "others": others, "cli": cli}
 
 
+def reader_phase(card_name: str, totals: dict, root: str) -> dict:
+    """Phase 8 (i): the full-size fake ogbn-arxiv raw set through the reader,
+    prepare, and 3 epochs through main --data_root under auto."""
+    from gnn_tail_generalization_tpu_torch import main as port_main
+    from gnn_tail_generalization_tpu_torch.config import build_config
+    from gnn_tail_generalization_tpu_torch.data.datasets import load_dataset, prepare
+    from gnn_tail_generalization_tpu_torch.data.synthetic import write_fake_ogbn_arxiv_raw
+    from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
+
+    t0 = time.perf_counter()
+    write_fake_ogbn_arxiv_raw(root)
+    write_s = time.perf_counter() - t0
+    cfg = build_config(**port_main.parse_args(READER_ARGS)[0])
+    t0 = time.perf_counter()
+    data = load_dataset(cfg, root)
+    read_s = time.perf_counter() - t0
+    assert data.name == "ogbn-arxiv", f"the reader did not fire: {data.name}"
+    assert data.x.shape == (BENCH_NODES, 128) and data.x.dtype == np.float32
+    assert int(data.y.max()) == 39 and int(data.train_mask.sum()) == 90941
+    t0 = time.perf_counter()
+    pd = prepare(data, cfg)
+    prepare_s = time.perf_counter() - t0
+    log(f"  fake ogbn-arxiv raw set: write {write_s:.2f} s, read {read_s:.2f} s, "
+        f"prepare {prepare_s:.2f} s; {pd.n_node} nodes, {data.edge_index.shape[1]} "
+        f"edges read, {pd.graph.n_edge} after the pipeline [{card_name} host]")
+    K.reset_launch_counts()
+    res = port_main.main(READER_ARGS + [f"--data_root={root}"])[0]
+    counts = dict(K.LAUNCHES)
+    expect = expected_launches(cfg, 3)
+    log(f"  main --data_root: launches {counts}, step_ms "
+        f"{[round(v, 3) for v in res.step_ms]} [{card_name}]")
+    assert counts == expect, f"the reader-fed teacher launched {counts}, expected {expect}"
+    assert res.records.shape == (3, 6) and np.isfinite(res.records).all(), res.records
+    for k, v in counts.items():
+        totals[k] += v
+    return {"write_s": write_s, "read_s": read_s, "prepare_s": prepare_s,
+            "n_edge": pd.graph.n_edge, "launches": counts, "step_ms": res.step_ms}
+
+
+def i2gtl_phase(pd, card_name: str, totals: dict, slice_step_ms: dict) -> dict:
+    """Phase 8 (ii): the I2-GTL teacher on the arxiv slice through main under
+    both kernels, and one step of the f32 kernel against the plain version
+    with fixed pairs."""
+    from gnn_tail_generalization_tpu_torch import main as port_main
+    from gnn_tail_generalization_tpu_torch.config import build_config
+    from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
+    from gnn_tail_generalization_tpu_torch.train import edgewise as ew
+
+    out = {}
+    for method in ("auto", "pallas_bf16"):
+        argv = I2GTL_NODEC_ARGS + [f"--spmm_method={method}"]
+        cfg = port_main.fitted_to(build_config(**port_main.parse_args(argv)[0]), pd)
+        K.reset_launch_counts()
+        res = port_main.main(argv)[0]
+        counts = dict(K.LAUNCHES)
+        # no loss-masked view under the edgewise loss: 2 launches a layer in
+        # the train step (forward, transposed backward), 1 in the eval
+        expect = expected_launches(cfg, 3)
+        assert counts == expect, f"I2-GTL ({method}) launched {counts}, expected {expect}"
+        assert res.columns[-2:] == ["linkp_train", "linkp_test"], res.columns
+        mrr = res.records[:, -2:]
+        assert np.isfinite(res.records).all() and (mrr > 0).all() and (mrr <= 1).all(), (
+            res.records)
+        for k, v in counts.items():
+            totals[k] += v
+        log(f"  I2-GTL nodeC ({method}): launches {counts}, linkp_train/test "
+            f"{mrr.round(4).tolist()}, step_ms {[round(v, 3) for v in res.step_ms]} "
+            f"(phase 3: {[round(v, 3) for v in slice_step_ms[method]]}) [{card_name}]")
+        out[method] = {"launches": counts, "step_ms": res.step_ms,
+                       "linkp": mrr.tolist()}
+    cfg = port_main.fitted_to(build_config(**port_main.parse_args(
+        I2GTL_NODEC_ARGS)[0]), pd)
+    plan = ew.build_edgewise_plan(cfg, pd)
+    dev = torch.device("cuda")
+    pairs = ew.draw_pairs(plan, ew.edgewise_consts(plan, dev),
+                          torch.Generator(device=dev).manual_seed(0), "train")
+    log("  one-step parity, I2-GTL, f32 kernel vs plain version, fixed pairs "
+        "(dropout 0):")
+    check_step_parity(cfg, pd, order_floor=True, pairs=pairs)
+    return out
+
+
+def edge_grad_phase(gb, card_name: str) -> dict:
+    """Phase 8 (iii): spmm_edge_grad on the bench-shape graph at d=256, the
+    f32 kernel (the reweighted graph has no plans) against the plain
+    version: y, dx and dw, and the forward + backward ms."""
+    from gnn_tail_generalization_tpu_torch.ops.spmm import spmm_edge_grad
+
+    dev = torch.device("cuda")
+    g = gb.to(dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(g.n_node, 256, generator=gen, device=dev)
+    w = torch.rand(g.n_edge, generator=gen, device=dev)
+    dy = torch.randn(g.n_node, 256, generator=gen, device=dev)
+
+    def run(method):
+        xx, ww = x.clone().requires_grad_(), w.clone().requires_grad_()
+        y = spmm_edge_grad(g, xx, ww, method)
+        y.backward(dy)
+        return y.detach(), xx.grad, ww.grad
+
+    got, want = run("auto"), run("gather")
+    rels = {k: rel_err(a, b) for k, a, b in zip(("y", "dx", "dw"), got, want)}
+    del got, want
+    ms = median_ms(lambda: run("auto"), reps=10)
+    plain_ms = median_ms(lambda: run("gather"), reps=5)
+    errs = {k: f"{v:.3e}" for k, v in rels.items()}
+    log(f"  spmm_edge_grad, bench graph ({g.n_edge} edges) d=256: rel err {errs}, "
+        f"forward + backward {ms:.4f} ms (plain version {plain_ms:.4f} ms) "
+        f"[{card_name}]")
+    assert all(v <= REL_TOL for v in rels.values()), rels
+    return {"rel_err": rels, "ms": ms, "plain_ms": plain_ms}
+
+
+def multiseed_phase(pd, card_name: str, totals: dict) -> dict:
+    """Phase 8 (iv): --N_exp through main, each seed's records against
+    train_teacher from that seed, bit for bit."""
+    from gnn_tail_generalization_tpu_torch import main as port_main
+    from gnn_tail_generalization_tpu_torch.config import build_config
+    from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
+    from gnn_tail_generalization_tpu_torch.train.loops import train_teacher
+
+    argv = READER_ARGS + [f"--N_exp={N_EXP}"]
+    cfg = port_main.fitted_to(build_config(**port_main.parse_args(argv)[0]), pd)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    results = port_main.main(argv)
+    run_s = time.perf_counter() - t0
+    counts = dict(K.LAUNCHES)
+    expect = expected_launches(cfg, 3 * N_EXP)
+    assert counts == expect, f"--N_exp={N_EXP} launched {counts}, expected {expect}"
+    for k, v in counts.items():
+        totals[k] += v
+    same = []
+    for s, res in enumerate(results):
+        one = train_teacher(cfg, pd, cfg.random_seed + s, 3, device="cuda")
+        same.append(bool(np.array_equal(res.records, one.records)))
+    log(f"  --N_exp={N_EXP}: launches {counts}, run {run_s:.2f} s, each seed's "
+        f"records bit-identical to a single train_teacher run: {same} [{card_name}]")
+    assert len(results) == N_EXP and all(same), same
+    return {"launches": counts, "run_s": run_s, "bit_identical": same}
+
+
+def checkpoint_phase(pd, card_name: str, totals: dict, root: str) -> dict:
+    """Phase 8 (v): a save_dir checkpoint read back onto the card, and a
+    --prog run repeated."""
+    from gnn_tail_generalization_tpu_torch import main as port_main
+    from gnn_tail_generalization_tpu_torch.config import build_config
+    from gnn_tail_generalization_tpu_torch.models.teacher import TeacherGNN
+    from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
+    from gnn_tail_generalization_tpu_torch.train.checkpoint import load_train_state
+    from gnn_tail_generalization_tpu_torch.train.loops import train_teacher
+
+    dev = torch.device("cuda")
+    cfg = port_main.fitted_to(build_config(**port_main.parse_args(READER_ARGS)[0]), pd)
+    K.reset_launch_counts()
+    res = train_teacher(cfg, pd, 0, 3, device=dev, save_dir=root)
+    counts = dict(K.LAUNCHES)
+    assert counts == expected_launches(cfg, 3), counts
+    for k, v in counts.items():
+        totals[k] += v
+    state = load_train_state(os.path.join(root, "teacherGNN.pt"), map_location=dev)
+    g, x = pd.graph.to(dev), torch.as_tensor(pd.x, device=dev)
+    outs = []
+    for sd in (res.state_dict, state["params"]):
+        model = TeacherGNN(cfg).to(dev)
+        model.load_state_dict(sd)
+        model.eval()
+        with torch.no_grad():
+            outs.append(model(g, x)[1])
+    same = bool(torch.equal(*outs))
+    log(f"  save_dir round trip: state epoch {state['epoch']}, eval forward "
+        f"bit-identical after the reload: {same} [{card_name}]")
+    assert same and state["epoch"] == 3
+
+    argv = READER_ARGS + ["--epochs=1", "--prog=0-1", f"--records_path={root}"]
+    K.reset_launch_counts()
+    first = port_main.main(argv)
+    first_counts = dict(K.LAUNCHES)
+    K.reset_launch_counts()
+    again = port_main.main(argv)
+    again_counts = dict(K.LAUNCHES)
+    log(f"  --prog=0-1: first run launches {first_counts}, repeated run "
+        f"{len(again)} results, launches {again_counts}")
+    assert len(first) == 1 and first_counts == expected_launches(cfg, 1), first_counts
+    assert again == [] and not any(again_counts.values()), again_counts
+    for k, v in first_counts.items():
+        totals[k] += v
+    return {"reload_bit_identical": same, "prog_first_launches": first_counts,
+            "prog_repeat_launches": again_counts}
+
+
+def cli_phase(gb, pd, card_name: str, totals: dict, slice_step_ms: dict) -> dict:
+    """Phase 8: the rest of the single-device CLI on the card. Its files go
+    to a directory under ``_chip/`` (gitignored), removed at the end."""
+    t_phase = time.perf_counter()
+    scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_chip")
+    os.makedirs(scratch, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="phase8-", dir=scratch)
+    try:
+        log("  (i) a full-size fake ogbn-arxiv raw set through the reader and main")
+        readers = reader_phase(card_name, totals, os.path.join(root, "data"))
+        torch.cuda.empty_cache()
+        log("  (ii) --exp_mode=I2_GTL --task=nodeC on the arxiv slice")
+        i2gtl = i2gtl_phase(pd, card_name, totals, slice_step_ms)
+        log("  (iii) spmm_edge_grad against the plain version")
+        edge_grad = edge_grad_phase(gb, card_name)
+        torch.cuda.empty_cache()
+        log(f"  (iv) --N_exp={N_EXP} through main")
+        multiseed = multiseed_phase(pd, card_name, totals)
+        log("  (v) a save_dir checkpoint and a repeated --prog run")
+        ckpt = checkpoint_phase(pd, card_name, totals, os.path.join(root, "runs"))
+    finally:
+        shutil.rmtree(root)
+    phase_s = time.perf_counter() - t_phase
+    log(f"  phase 8: {phase_s:.1f} s")
+    return {"phase_s": phase_s, "readers": readers, "i2gtl": i2gtl,
+            "spmm_edge_grad": edge_grad, "multiseed": multiseed, "checkpoint": ckpt}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
@@ -990,7 +1238,7 @@ def main() -> int:
                                                   schedule=g.schedule))
                     log(f"  {name:14s} call without a schedule bit-identical: {same}")
                     assert same, f"{name}: the schedule built from indptr differs"
-    del graphs, gb, bg, sg
+    del graphs, bg, sg  # gb (on the host) returns in phase 8
     torch.cuda.empty_cache()
 
     log("== phase 3: the slice through the port's main")
@@ -1023,11 +1271,14 @@ def main() -> int:
 
     log("== phase 6: label propagation and Correct & Smooth")
     propagation = propagation_phase(pd, card_name, totals)
-    del pd
     torch.cuda.empty_cache()
 
     log("== phase 7: link prediction at the ogbl-citation2 shape")
     linkpred = linkpred_phase(card_name, totals, dev)
+    torch.cuda.empty_cache()
+
+    log("== phase 8: the reader, the I2-GTL teacher, multi-seed, checkpoints")
+    cli = cli_phase(gb, pd, card_name, totals, step_ms)
 
     assert totals["spmm_csr_plain"] == 0, totals
     kernels = [{"name": name, "route": "cuda", "source": SOURCE,
@@ -1036,7 +1287,7 @@ def main() -> int:
     print(json.dumps({"kernels": kernels, "step_ms": step_ms,
                       "student": student, "trick_step_ms": tricks,
                       "propagation": propagation, "linkpred": linkpred,
-                      "card": card_name}))
+                      "cli": cli, "card": card_name}))
     print(card_name)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

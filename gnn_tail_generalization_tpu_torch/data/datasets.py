@@ -1,7 +1,8 @@
 """Dataset container and the node-classification preparation pipeline.
 
 The port of ``gnn_tail_generalization_tpu/data/datasets.py`` (single-device
-parts). Reference parity: the reference's ``trainer_node_classification.py``
+parts; the sharded ``prepare_sharded``/``prepare_hier`` come with the
+multi-device layer). Reference parity: the reference's ``trainer_node_classification.py``
 (load_data: Planetoid public split with NormalizeFeatures, the Cora
 first-600-train special split, symmetrize + de/re-self-loop edge pipeline) and
 ``utils.py:680-752`` (degree analysis + isolation crafting).
@@ -9,7 +10,6 @@ first-600-train special split, symmetrize + de/re-self-loop edge pipeline) and
 from __future__ import annotations
 
 import dataclasses
-import os
 from dataclasses import dataclass
 from typing import Optional
 
@@ -112,38 +112,33 @@ def prepare(data: NodeData, cfg: Config, *, spmm_dense_threshold: int = 8192
     )
 
 
-def _raw_files_present(data_root: str, dataset: str) -> bool:
-    """Whether the JAX package's readers would find raw files for
-    ``dataset`` under ``data_root`` (the same places they look)."""
-    if dataset in ("Cora", "Citeseer", "Pubmed"):
-        lname = dataset.lower()
-        dirs = (os.path.join(data_root, dataset, "raw"),
-                os.path.join(data_root, dataset),
-                os.path.join(data_root, lname, "raw"))
-        return any(os.path.exists(os.path.join(d, f"ind.{lname}.x"))
-                   for d in dirs)
-    if dataset == "ogbn-arxiv":
-        return any(os.path.isdir(os.path.join(data_root, d))
-                   for d in ("ogbn-arxiv", "ogbn_arxiv"))
-    if dataset in ("TEXAS", "WISCONSIN", "CORNELL", "ACTOR", "chameleon",
-                   "squirrel"):
-        names = [dataset, dataset.lower()] + (["film"] if dataset == "ACTOR"
-                                              else [])
-        return any(os.path.exists(os.path.join(data_root, n, sub,
-                                               "out1_graph_edges.txt"))
-                   for n in names for sub in ("raw", ""))
-    return False
+def load_dataset(cfg: Config, data_root: Optional[str] = None,
+                 which_run: int = 0) -> NodeData:
+    """The registry of the JAX package's ``load_dataset`` (the reference's
+    load_data/load_ogbn, trainer_node_classification.py:570-670): the raw
+    files under ``data_root`` when the dataset's reader finds them
+    (``planetoid.py``, ``ogb.py``, ``webkb.py``), otherwise a deterministic
+    synthetic stand-in with the preset shapes. WebKB/Actor/Wikipedia re-split
+    per run block (which_split = which_run // 10, trainer:645-651)."""
+    if data_root is not None:
+        try:
+            if cfg.dataset in ("Cora", "Citeseer", "Pubmed"):
+                from . import planetoid
 
+                return planetoid.load_planetoid(data_root, cfg.dataset)
+            if cfg.dataset == "ogbn-arxiv":
+                from . import ogb
 
-def load_dataset(cfg: Config, data_root: Optional[str] = None) -> NodeData:
-    """The deterministic synthetic stand-in with the preset shapes. The raw
-    Planetoid/OGB/WebKB readers are not ported yet (ROADMAP A0, dataset
-    readers): where their files are present this raises rather than silently
-    training on synthetic data."""
-    if data_root is not None and _raw_files_present(data_root, cfg.dataset):
-        raise NotImplementedError(
-            f"raw {cfg.dataset!r} files found under {data_root!r}, but the "
-            "port has no dataset readers yet (ROADMAP: dataset readers)")
+                return ogb.load_ogbn_arxiv(data_root)
+            if cfg.dataset in ("TEXAS", "WISCONSIN", "CORNELL", "ACTOR",
+                               "chameleon", "squirrel"):
+                from . import webkb
+
+                return webkb.load_webkb_like(
+                    data_root, cfg.dataset, which_split=which_run // 10
+                )
+        except FileNotFoundError:
+            pass
     known = ("Cora", "Citeseer", "Pubmed", "ogbn-arxiv", "TEXAS",
              "WISCONSIN", "CORNELL", "ACTOR", "chameleon", "squirrel", "")
     if cfg.dataset not in known:

@@ -1,11 +1,12 @@
 """Deterministic synthetic citation-style graphs.
 
-A numpy copy of the generators of ``gnn_tail_generalization_tpu/data/
-synthetic.py`` that the port needs; the tests hold their outputs equal to the
-originals'. Used when the real Planetoid/OGB files are not on disk. The
-generator produces the statistical shape the reference datasets have:
-power-law-ish degrees, label homophily (so a GCN beats an MLP), and
-bag-of-words-like sparse nonneg features correlated with the label.
+A numpy copy of ``gnn_tail_generalization_tpu/data/synthetic.py``; the tests
+hold its code and outputs equal to the original's. Used when the real
+Planetoid/OGB files are not on disk. The generator produces the statistical
+shape the reference datasets have: power-law-ish degrees, label homophily
+(so a GCN beats an MLP), and bag-of-words-like sparse nonneg features
+correlated with the label. The ``write_fake_*_raw`` writers put full-size
+fake raw sets on disk for the dataset readers.
 """
 from __future__ import annotations
 
@@ -148,3 +149,118 @@ def _finish(rng, n_node, x, y, edge_index, train_per_class, n_val, n_test,
         test_mask=test_mask,
         name=name,
     )
+
+
+def write_fake_planetoid_raw(root: str, name: str = "cora",
+                             n_node: int = 2708, n_feat: int = 1433,
+                             n_class: int = 7, n_allx: int = 1708,
+                             n_train: int = 140, n_edge_und: int = 5278,
+                             density: float = 0.0127, seed: int = 0) -> str:
+    """Write a FULL-SIZE fake Planetoid raw set (ind.<name>.{x,tx,allx,y,
+    ty,ally,graph,test.index}) — real Cora dimensions by default — so the
+    real reader (data/planetoid.py) and the exact golden-protocol configs
+    can be exercised end-to-end without the real files. Features are
+    sparse bag-of-words at Cora's density; labels are class-clustered so
+    training is non-degenerate; the graph is a symmetric power-law
+    adjacency dict in the canonical pickle format.
+
+    Returns the directory holding the files (``<root>/<Name>/raw``)."""
+    import os
+    import pickle
+
+    import scipy.sparse as ssp
+
+    rng = np.random.default_rng(seed)
+    lname = name.lower()
+    d = os.path.join(root, name.capitalize(), "raw")
+    os.makedirs(d, exist_ok=True)
+
+    y_full = rng.integers(0, n_class, n_node)
+    feats = (rng.random((n_node, n_feat)) < density).astype(np.float32)
+    # class-dependent signal columns so the fake task is learnable
+    for c in range(n_class):
+        cols = slice(c * 8, c * 8 + 8)
+        feats[y_full == c, cols] += (
+            rng.random(((y_full == c).sum(), 8)) < 0.3)
+
+    e = fast_powerlaw_graph(n_node, n_edge_und, seed)
+    graph = {i: [] for i in range(n_node)}
+    for a, b in zip(*e):
+        graph[int(a)].append(int(b))
+        graph[int(b)].append(int(a))
+
+    n_test = n_node - n_allx
+    test_idx = rng.permutation(np.arange(n_allx, n_node))
+    onehot = np.eye(n_class, dtype=np.int32)[y_full]
+
+    def sp(arr):
+        return ssp.csr_matrix(arr)
+
+    files = {
+        "x": sp(feats[:n_train]),
+        "y": onehot[:n_train],
+        "allx": sp(feats[:n_allx]),
+        "ally": onehot[:n_allx],
+        # tx/ty rows follow the SORTED test id order (the loader permutes
+        # them back through test.index)
+        "tx": sp(feats[n_allx:]),
+        "ty": onehot[n_allx:],
+        "graph": graph,
+    }
+    for suffix, obj in files.items():
+        with open(os.path.join(d, f"ind.{lname}.{suffix}"), "wb") as f:
+            pickle.dump(obj, f)
+    np.savetxt(os.path.join(d, f"ind.{lname}.test.index"), test_idx,
+               fmt="%d")
+    assert n_test == len(test_idx)
+    return d
+
+
+def write_fake_ogbn_arxiv_raw(root: str, n_node: int = 169343,
+                              n_feat: int = 128, n_class: int = 40,
+                              n_edge: int = 1_166_243,
+                              seed: int = 0) -> str:
+    """Write a FULL-SIZE fake ogbn-arxiv raw CSV set (edge.csv.gz,
+    node-feat.csv.gz, node-label.csv.gz, split/time/{train,valid,test})
+    so the best-config arxiv teacher protocol (the reference's
+    base_options.py:412, 71.54) can be dry-run through the real loader
+    (data/ogb.py:load_ogbn_arxiv) at real dimensions without the real
+    files. Labels are class-clustered into the features so
+    the fake task is learnable. Returns the dataset dir.
+
+    The files are compressed at gzip level 1, where the JAX package's
+    writer uses level 9: they hold the same text, so the readers return the
+    same arrays, and level 9 spends nearly all of a full-size write
+    compressing the 21.7M feature values."""
+    import gzip
+    import os
+
+    rng = np.random.default_rng(seed)
+    d = os.path.join(root, "ogbn_arxiv")
+    raw = os.path.join(d, "raw")
+    split = os.path.join(d, "split", "time")
+    os.makedirs(raw, exist_ok=True)
+    os.makedirs(split, exist_ok=True)
+
+    y = rng.integers(0, n_class, n_node)
+    x = (rng.standard_normal((n_node, n_feat)) * 0.1).astype(np.float32)
+    x[np.arange(n_node), y % n_feat] += 1.0
+    e = fast_powerlaw_graph(n_node, n_edge, seed)
+
+    def _save(path, arr, fmt):
+        with gzip.open(path, "wt", compresslevel=1) as f:
+            np.savetxt(f, arr, fmt=fmt, delimiter=",")
+
+    _save(os.path.join(raw, "edge.csv.gz"), e.T, "%d")
+    _save(os.path.join(raw, "node-feat.csv.gz"), x, "%.3f")
+    _save(os.path.join(raw, "node-label.csv.gz"), y[:, None], "%d")
+    _save(os.path.join(raw, "node_year.csv.gz"),
+          rng.integers(2005, 2021, (n_node, 1)), "%d")
+    perm = rng.permutation(n_node)
+    # arxiv's real split sizes: 90941 / 29799 / 48603
+    bounds = (90941, 90941 + 29799)
+    _save(os.path.join(split, "train.csv.gz"), perm[:bounds[0], None], "%d")
+    _save(os.path.join(split, "valid.csv.gz"),
+          perm[bounds[0]:bounds[1], None], "%d")
+    _save(os.path.join(split, "test.csv.gz"), perm[bounds[1]:, None], "%d")
+    return d

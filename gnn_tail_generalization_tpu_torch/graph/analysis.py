@@ -1,7 +1,7 @@
 """Degree census, head/tail/isolation node splits, isolation crafting.
 
-A numpy copy of ``gnn_tail_generalization_tpu/graph/analysis.py`` (the parts
-the teacher path needs); the tests hold it equal to the original.
+A numpy copy of ``gnn_tail_generalization_tpu/graph/analysis.py``; the tests
+hold its code and outputs equal to the original's.
 
 Reference parity:
 - degree census:          ``utils.py:300-334``  (graph_analyze)
@@ -115,3 +115,16 @@ def craft_isolation(edge_index: np.ndarray, zero_deg_mask: np.ndarray):
     touches = zero_deg_mask[e[0]] | zero_deg_mask[e[1]]
     keep = (e[0] == e[1]) | ~touches
     return e[:, keep], e
+
+
+def table1_stats(n_node: int, degs: np.ndarray):
+    """[N, sum(deg), max, mean, median, %isolated] (utils.py:676-678)."""
+    degs = np.asarray(degs)
+    return [
+        n_node,
+        int(degs.sum()),
+        int(degs.max()),
+        float(degs.mean()),
+        float(np.median(degs)),
+        float((degs == 0).sum() / n_node * 100),
+    ]

@@ -144,6 +144,27 @@ class Graph:
                  if isinstance(getattr(self, f.name), (torch.Tensor, RowSchedule))}
         return dataclasses.replace(self, **moved)
 
+    def with_edge_weight(self, w: torch.Tensor, w_t: Optional[torch.Tensor] = None,
+                         rebuild_dense: bool = False) -> "Graph":
+        """The graph with edge weights ``w`` ([E], forward-CSR order).
+        ``w_t`` defaults to the same weights in transposed-CSR order.
+        ``rebuild_dense=False`` drops the dense adjacency (``auto`` then
+        takes the CSR kernel). ``has_plans`` goes, as the JAX package drops
+        its plans, so ``pallas_bf16`` computes in f32 here too; both row
+        schedules stay, since they depend on ``indptr`` alone."""
+        if w.shape != (self.n_edge,):
+            raise ValueError(f"w must be [{self.n_edge}], got {tuple(w.shape)}")
+        w = w.to(torch.float32).contiguous()
+        w_t = w[self.t_from_fwd] if w_t is None else w_t.to(torch.float32).contiguous()
+        dense = None
+        if rebuild_dense and self.dense_adj is not None:
+            rows = edge_rows(self.indptr, self.n_edge)
+            dense = torch.zeros(self.n_node, self.n_node, dtype=w.dtype,
+                                device=w.device)
+            dense.index_put_((rows, self.indices.long()), w, accumulate=True)
+        return dataclasses.replace(self, weight=w, weight_t=w_t,
+                                   dense_adj=dense, has_plans=False)
+
 
 # ---------------------------------------------------------------------------
 # Host-side edge-index transforms (numpy; run once at data-load time)
@@ -327,3 +348,25 @@ def loss_masked_view(
                       with_dense=g.dense_adj is not None,
                       with_plans=g.has_plans)
     return dataclasses.replace(sub, deg_out=g.deg_out, deg_in=g.deg_in)
+
+
+def subgraph_edges(
+    edge_index: np.ndarray,
+    subset: np.ndarray,
+    n_node: int,
+    relabel: bool = True,
+    edge_attr: Optional[np.ndarray] = None,
+):
+    """Crop edges to a node subset, optionally relabeling (utils.py:1250-1267).
+    A copy of the JAX package's host helper."""
+    e = _as_np(edge_index)
+    mask = np.zeros(n_node, dtype=bool)
+    mask[np.asarray(subset)] = True
+    emask = mask[e[0]] & mask[e[1]]
+    e = e[:, emask]
+    attr = None if edge_attr is None else np.asarray(edge_attr)[emask]
+    if relabel:
+        new_id = np.zeros(n_node, dtype=np.int64)
+        new_id[np.asarray(subset)] = np.arange(len(np.asarray(subset)))
+        e = new_id[e]
+    return e, attr

@@ -1,13 +1,20 @@
 """Experiment CLI of the PyTorch port.
 
-Takes the config flags of the root ``main.py`` (every field of ``Config``)
-and prints the same per-epoch and mean ± std lines. ``--train_which`` is
-TeacherGNN, one of the Cold Brew students: SEMLP (teacher, SE table,
-part 1, part 2), StudentBaseMLP or GraphMLP, or LP (label propagation,
-which prints one JSON line of accuracies and ends the seed loop).
-``--exp_mode=I2_GTL`` with a ``--task`` other than nodeC trains link
-prediction on the transfer split (``run_i2gtl``) and prints its stats as
-one JSON line.
+Takes the flags of the root ``main.py`` (every field of ``Config``, plus
+``--data_root``, ``--log_every``, ``--epoch_block``, ``--n_devices`` and
+``--hier_mesh``) and prints the same per-epoch and mean ± std lines.
+``--train_which`` is TeacherGNN, one of the Cold Brew students: SEMLP
+(teacher, SE table, part 1, part 2), StudentBaseMLP or GraphMLP, or LP
+(label propagation, which prints one JSON line of accuracies and ends the
+seed loop). ``--exp_mode=I2_GTL --task=nodeC`` trains the teacher with the
+edgewise loss; with another ``--task`` it trains link prediction on the
+transfer split (``run_i2gtl``) and prints its stats as one JSON line.
+Raw dataset files under ``--data_root`` are read where present, else a
+synthetic stand-in with the preset shapes is used. ``--N_exp > 1`` under
+TeacherGNN goes through ``train/multiseed.py``; ``--prog`` resumes a batch
+grid through ``utils/records.py:TensorRex``, and ``--records_path`` /
+``--records_desc`` save each column's curves. Only the multi-device flags
+(``--n_devices > 1``, ``--hier_mesh``) are not ported.
 
 Usage:
   python -m gnn_tail_generalization_tpu_torch.main --dataset=ogbn-arxiv \
@@ -20,7 +27,6 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
-import os
 from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
@@ -51,6 +57,12 @@ def parse_args(argv: Optional[List[str]] = None):
             parser.add_argument(f"--{f.name}", type=cast, default=None)
     parser.add_argument("--data_root", type=str, default="data")
     parser.add_argument("--log_every", type=int, default=20)
+    parser.add_argument("--epoch_block", type=int, default=0,
+                        help="accepted and ignored: in the JAX package it "
+                             "scans blocks of epochs in one jitted call to "
+                             "save TPU host syncs, and its records are "
+                             "bitwise-identical across block sizes; here "
+                             "each epoch is one eager step")
     parser.add_argument("--n_devices", type=int, default=1,
                         help="only 1: the multi-device layer is not ported "
                              "yet (ROADMAP A12)")
@@ -59,7 +71,8 @@ def parse_args(argv: Optional[List[str]] = None):
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device to train on (cuda or cpu)")
     ns = parser.parse_args(argv)
-    cli_only = ("data_root", "log_every", "n_devices", "hier_mesh", "device")
+    cli_only = ("data_root", "log_every", "epoch_block", "n_devices",
+                "hier_mesh", "device")
     overrides = {k: v for k, v in vars(ns).items()
                  if v is not None and k not in cli_only}
     for f in dataclasses.fields(Config):  # int-encoded bools back to bool
@@ -68,46 +81,64 @@ def parse_args(argv: Optional[List[str]] = None):
     return overrides, ns
 
 
-def _check_supported(cfg: Config, overrides: dict, ns) -> None:
+def _check_supported(ns) -> None:
     if ns.n_devices > 1 or ns.hier_mesh:
         raise NotImplementedError(
             "--n_devices>1 / --hier_mesh: the multi-device layer is not "
             "ported yet (ROADMAP A12)")
-    if cfg.prog or "records_path" in overrides or "records_desc" in overrides:
-        raise NotImplementedError(
-            "--prog / --records_path / --records_desc: utils/records.py is "
-            "not ported yet (ROADMAP A11)")
 
 
 def run_i2gtl(data_root: str, log_every: int, device) -> Dict[str, float]:
     """exp_mode=I2_GTL: link-prediction transfer learning (the reference's
     trainer_link_prediction.py standalone mode): the default
     ``LinkPredConfig``, 2 runs of 5 epochs on the i2t transfer split of
-    ogbl-citation2 or, with no raw files, of a 2,000-node synthetic
-    stand-in. Prints and returns the stats."""
+    ogbl-citation2 read from ``data_root`` (``data/ogb.py:load_ogbl_graph``)
+    or, with no raw files, of a 2,000-node synthetic stand-in. Prints and
+    returns the stats."""
+    from .data.ogb import load_ogbl_graph
     from .linkpred import model as lpm
     from .linkpred import surgery
 
-    if any(os.path.isdir(os.path.join(data_root, d))
-           for d in ("ogbl-citation2", "ogbl_citation2")):
-        raise NotImplementedError(
-            f"raw ogbl-citation2 files found under {data_root!r}, but the "
-            "port has no ogbl reader yet (ROADMAP A0b, dataset readers)")
-    print("NOTE: no ogbl raw files; synthetic transfer stand-in.")
-    rng = np.random.default_rng(0)
-    n = 2000
-    g = surgery.GraphData(
-        x=rng.normal(size=(n, 64)).astype(np.float32),
-        edge_index=fast_powerlaw_graph(n, 10000, 0),
-        node_year=rng.integers(2010, 2019, n),
-        keys=np.arange(n),
-    )
-    g2, se = surgery.transfer_surgery_node_year(g, "i2t", drop_rate=0.0)
+    try:
+        g, _ = load_ogbl_graph(data_root, "ogbl-citation2")
+        g2, se = surgery.transfer_surgery_node_year(g, "i2t")
+    except FileNotFoundError:
+        print("NOTE: no ogbl raw files; synthetic transfer stand-in.")
+        rng = np.random.default_rng(0)
+        n = 2000
+        g = surgery.GraphData(
+            x=rng.normal(size=(n, 64)).astype(np.float32),
+            edge_index=fast_powerlaw_graph(n, 10000, 0),
+            node_year=rng.integers(2010, 2019, n),
+            keys=np.arange(n),
+        )
+        g2, se = surgery.transfer_surgery_node_year(g, "i2t", drop_rate=0.0)
     out = lpm.train_linkpred(lpm.LinkPredConfig(), g2.x, g2.edge_index,
                              g2.n_node, epochs=5, runs=2, split_edge=se,
                              log_every=log_every, device=device)
     print(json.dumps(out["stats"]))
     return out["stats"]
+
+
+def open_rex(cfg: Config):
+    """(TensorRex, cell) of ``--prog``: "i-j-k" or "i-j-k/Si-Sj-Sk" (the
+    reference's prog string carries the grid shape, main.py:29-31). Without
+    an explicit shape an existing rex file defines it, and a fresh one is
+    sized to contain the cell."""
+    from .utils.records import TensorRex
+
+    spec = cfg.prog.replace(",", "-")
+    shape = None
+    if "/" in spec:
+        cell_s, shape_s = spec.split("/")
+        cell = tuple(int(v) for v in cell_s.split("-"))
+        shape = tuple(int(v) for v in shape_s.split("-"))
+    else:
+        cell = tuple(int(v) for v in spec.split("-"))
+    rex = TensorRex(f"{cfg.records_path}/{cfg.rexName}",
+                    grid_shape=shape or tuple(c + 1 for c in cell),
+                    record_len=8, grow_to_fit=shape is None)
+    return rex, cell
 
 
 def fitted_to(cfg: Config, data) -> Config:
@@ -131,9 +162,12 @@ def load_prepared(cfg: Config, data_root: str) -> Tuple[Config, PreparedData]:
 
 def main(argv: Optional[List[str]] = None
          ) -> List[Union[TrainResult, Dict[str, float]]]:
+    """Runs the experiment; returns one result per seed (a ``TrainResult``,
+    or LP's dict of accuracies), or none when ``--prog`` finds its cell
+    done."""
     overrides, ns = parse_args(argv)
     cfg = build_config(**overrides)
-    _check_supported(cfg, overrides, ns)
+    _check_supported(ns)
     device = torch.device(ns.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device=cuda, but torch finds no CUDA device")
@@ -146,28 +180,60 @@ def main(argv: Optional[List[str]] = None
     print(f"Configs:\n  dataset={cfg.dataset} train_which={cfg.train_which} "
           f"type_trick={cfg.type_trick} num_layers={cfg.num_layers} "
           f"dim_hidden={cfg.dim_hidden}")
+    rex = cell = None
+    if cfg.prog:
+        # tensorRex batch-grid resumption (main.py:54-124): skip a done
+        # cell, record the final row when the cell completes
+        rex, cell = open_rex(cfg)
+        if rex.is_done(cell):
+            print(f"rex cell {cell} already done; skipping")
+            return []
     cfg, pd = load_prepared(cfg, ns.data_root)
 
-    results = []
-    for seed in range(cfg.N_exp):
-        res = run_experiment(cfg, pd, seed=cfg.random_seed + seed,
-                             log_every=ns.log_every, device=device)
-        results.append(res)
-        if isinstance(res, dict):  # pure LP
-            print(json.dumps(res))
-            return results
-        print(f"seed {seed}: " + " ".join(
-            f"{c}={res.records[-1, i]:.2f}" for i, c in enumerate(res.columns)))
+    if cfg.train_which == "TeacherGNN" and cfg.N_exp > 1:
+        from .train.multiseed import train_teacher_multiseed
+
+        seeds = [cfg.random_seed + s for s in range(cfg.N_exp)]
+        results = train_teacher_multiseed(cfg, pd, seeds, log_every=ns.log_every,
+                                          device=device)
+        for seed, res in enumerate(results):
+            print(f"seed {seed}: " + " ".join(
+                f"{c}={res.records[-1, i]:.2f}" for i, c in enumerate(res.columns)))
+    else:
+        results = []
+        for seed in range(cfg.N_exp):
+            res = run_experiment(cfg, pd, seed=cfg.random_seed + seed,
+                                 log_every=ns.log_every, device=device)
+            results.append(res)
+            if isinstance(res, dict):  # pure LP
+                print(json.dumps(res))
+                if rex is not None:
+                    rex.record(cell, list(res.values()))
+                    print(f"rex cell {cell} recorded")
+                return results
+            print(f"seed {seed}: " + " ".join(
+                f"{c}={res.records[-1, i]:.2f}" for i, c in enumerate(res.columns)))
 
     stacked = np.stack([r.records for r in results])  # [seeds, epochs, cols]
-    final = stacked[:, -1, :]
     cols = results[-1].columns
+    if overrides.get("records_path") or overrides.get("records_desc"):
+        # wzRec-style persistence (utils.py:1005-1051): one npy per column
+        from .utils.records import save_curve
+
+        rdir = f"{cfg.records_path}/{cfg.records_desc or cfg.dataset}"
+        for i, c in enumerate(cols):
+            save_curve(stacked[:, :, i], f"{c}@{cfg.train_which}", rdir)
+        print(f"records saved under {rdir}")
+    final = stacked[:, -1, :]
     print("=== mean ± std over seeds (final epoch) ===")
     for i, c in enumerate(cols):
         print(f"  {c}: {final[:, i].mean():.2f} ± {final[:, i].std():.2f}")
-    best_i = cols.index("acc_test")
+    best_i = cols.index("acc_test") if "acc_test" in cols else 0
     print(f"best acc_test over epochs, per seed: "
           f"{stacked[:, :, best_i].max(axis=1)}")
+    if rex is not None:
+        rex.record(cell, final.mean(axis=0))
+        print(f"rex cell {cell} recorded to {cfg.records_path}/{cfg.rexName}")
     return results
 
 

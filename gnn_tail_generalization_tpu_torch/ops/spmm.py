@@ -18,14 +18,17 @@ round to bf16. On a CPU tensor the kernel paths run the kernels' plain
 versions.
 
 The backward is the same aggregation on the transposed CSR (dx = A^T dy);
-the graph gets no gradient.
+the graph gets no gradient. ``spmm_edge_grad`` is the variant whose edge
+weights train (their gradient an SDDMM), and ``spmm_normalized`` the
+degree-normalized aggregation.
 """
 from __future__ import annotations
 
 import torch
 
-from ..graph.core import Graph
+from ..graph.core import Graph, edge_rows
 from . import spmm_kernels
+from .sddmm import edge_dot
 
 METHODS = ("auto", "dense", "gather", "pallas", "pallas_bf16")
 
@@ -79,3 +82,56 @@ def spmm(g: Graph, x: torch.Tensor, method: str = "auto") -> torch.Tensor:
         raise ValueError(f"x must be [{g.n_node}, d] for a graph of "
                          f"{g.n_node} nodes, got {tuple(x.shape)}")
     return _SpMM.apply(x.contiguous(), g, method)
+
+
+class _SpMMEdgeGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, g, method):
+        gw = g.with_edge_weight(w, rebuild_dense=method == "dense")
+        ctx.save_for_backward(x)
+        ctx.gw, ctx.method, ctx.w_dtype = gw, method, w.dtype
+        return _spmm_impl(gw, x, method)
+
+    @staticmethod
+    def backward(ctx, dy):
+        (x,) = ctx.saved_tensors
+        gw, dy = ctx.gw, dy.contiguous()
+        dx = _spmm_impl(gw.transpose(), dy, ctx.method)
+        # forward-CSR order: edge e of row r carries dy[r] . x[indices_e]
+        rows = edge_rows(gw.indptr, gw.n_edge)
+        dw = edge_dot(dy[rows], x[gw.indices.long()]).to(ctx.w_dtype)
+        return dx, dw, None, None
+
+
+def spmm_edge_grad(g: Graph, x: torch.Tensor, w: torch.Tensor,
+                   method: str = "auto") -> torch.Tensor:
+    """SpMM with differentiable edge weights ``w`` ([E] f32, forward-CSR
+    order, the JAX package's dst-sorted order): ``y = A_w @ x``, with
+    ``dx = A_w^T dy`` on the reweighted transposed CSR and
+    ``dw_e = dy[dst_e] . x[src_e]`` (SDDMM). The reweighted graph has no
+    plans, so ``pallas``/``pallas_bf16`` compute in f32 as in the JAX
+    package; ``dense`` rebuilds the dense adjacency from ``w``."""
+    if x.dim() != 2 or x.shape[0] != g.n_node:
+        raise ValueError(f"x must be [{g.n_node}, d] for a graph of "
+                         f"{g.n_node} nodes, got {tuple(x.shape)}")
+    return _SpMMEdgeGrad.apply(x.contiguous(), w, g, method)
+
+
+def spmm_normalized(g: Graph, x: torch.Tensor, norm: str = "both",
+                    method: str = "auto") -> torch.Tensor:
+    """DGL-style degree-normalized aggregation: ``D_in^-1/2 A D_out^-1/2 x``
+    for 'both', degrees clamped to >= 1; 'left' / 'right' scale by 1/deg on
+    one side. (The JAX package's baked ``plans_norm`` form computes the same
+    function and is not carried over.)"""
+    if norm not in ("both", "left", "right"):
+        raise ValueError(f"unknown norm {norm!r}")
+    if norm in ("left", "both"):
+        d = g.deg_out.clamp(min=1.0)
+        scale = d ** -0.5 if norm == "both" else 1.0 / d
+        x = x * scale[:, None].to(x.dtype)
+    y = spmm(g, x, method)
+    if norm in ("right", "both"):
+        d = g.deg_in.clamp(min=1.0)
+        scale = d ** -0.5 if norm == "both" else 1.0 / d
+        y = y * scale[:, None].to(y.dtype)
+    return y

@@ -17,11 +17,12 @@ The port of ``gnn_tail_generalization_tpu/train/loops.py`` (the reference's
   over the DAD adjacency;
 - ``run_experiment``: the dispatch on ``train_which`` (10-30).
 
-Each epoch is one eager step. The JAX package's epoch-block scans and
-vmapped multi-seed training exist to amortise TPU dispatch and are not
-carried over; main.py loops over seeds. Random batches and dropout are drawn
-from one ``torch.Generator`` per phase, seeded from ``seed`` (the teacher's
-graph-dropout masks from one more).
+Each epoch is one eager step. The JAX package's epoch-block scans exist to
+amortise TPU dispatch and are not carried over (``--epoch_block`` is
+accepted and ignored); multi-seed training loops over the seeds
+(``train/multiseed.py``). Random batches and dropout are drawn from one
+``torch.Generator`` per phase, seeded from ``seed`` (the teacher's
+graph-dropout masks and edgewise pairs from one more each).
 """
 from __future__ import annotations
 
@@ -58,6 +59,12 @@ class TrainResult:
     eval_ms: List[float] = field(default_factory=list)  # part 2: head/tail/iso
     extra: Dict[str, Any] = field(default_factory=dict)  # SEMLP: earlier phases
 
+    def last(self, col: str) -> float:
+        return float(self.records[-1, self.columns.index(col)])
+
+    def best(self, col: str) -> float:
+        return float(self.records[:, self.columns.index(col)].max())
+
 
 def _nll_masked(logits: torch.Tensor, y: torch.Tensor,
                 mask: torch.Tensor) -> torch.Tensor:
@@ -65,6 +72,23 @@ def _nll_masked(logits: torch.Tensor, y: torch.Tensor,
     # where (not *0) so masked-out rows can hold non-finite values
     picked = torch.where(mask, picked, torch.zeros_like(picked))
     return -picked.sum() / mask.float().sum().clamp(min=1.0)
+
+
+def teacher_loss(cfg: Config, classi: torch.Tensor,
+                 se_reg_all: Optional[torch.Tensor], y: torch.Tensor,
+                 train_mask: torch.Tensor,
+                 l_struct: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The teacher's train loss: the masked NLL (nodewise component), the SE
+    regulariser, and the edgewise loss ``l_struct`` where the config has
+    that component (exp_mode=I2_GTL)."""
+    loss = torch.zeros((), device=classi.device)
+    if cfg.has_loss_component_nodewise:
+        loss = _nll_masked(classi, y, train_mask) * cfg.TeacherGNN.lossa_semantic
+    if se_reg_all is not None:
+        loss = loss + cfg.se_reg * se_reg_all
+    if l_struct is not None:
+        loss = loss + l_struct * cfg.TeacherGNN.lossa_structure
+    return loss
 
 
 def final_agg_view(cfg: Config, data: PreparedData) -> Optional[Graph]:
@@ -99,6 +123,7 @@ def train_teacher(
     *,
     device="cpu",
     init_state: Optional[Mapping[str, Any]] = None,
+    save_dir: Optional[str] = None,
 ) -> TrainResult:
     """Train the teacher for ``epochs`` steps on ``device``. ``seed`` seeds
     the parameter init, the dropout generator and, from ``seed + 4``, the
@@ -109,10 +134,12 @@ def train_teacher(
     ``init_state``: starting parameters and buffers (a state_dict, e.g.
     from utils/convert.params_from_jax) instead of the random init.
     ``step_ms`` of the result holds each epoch's train-step time on the
-    host clock."""
-    if cfg.has_loss_component_edgewise:
-        raise NotImplementedError(
-            "exp_mode=I2_GTL: the edgewise loss is not ported yet (ROADMAP A8)")
+    host clock. Under the edgewise loss (exp_mode=I2_GTL) the pairs are
+    drawn from a generator seeded ``seed + 5``, and the records gain the
+    MRR columns ``linkp_train`` (the train-mode forward's) and
+    ``linkp_test`` (the eval forward's). ``save_dir``: the final state is
+    written to ``<save_dir>/teacherGNN.pt``, and when training for SEMLP
+    the best one to ``best-teacherGNN.pt`` (train/checkpoint.py)."""
     epochs = cfg.epochs if epochs is None else epochs
     device = torch.device(device)
 
@@ -124,6 +151,12 @@ def train_teacher(
     # graph-dropout masks get a stream of their own, drawn in train mode only
     graph_gen = torch.Generator(device=device).manual_seed(seed + 4)
     opt = make_optimizer(cfg, model.parameters())
+    ew_fn = None
+    if cfg.has_loss_component_edgewise:
+        from .edgewise import build_edgewise_plan, make_edgewise_loss_fn
+
+        ew_fn = make_edgewise_loss_fn(build_edgewise_plan(cfg, data), device)
+        pair_gen = torch.Generator(device=device).manual_seed(seed + 5)
 
     g = data.graph.to(device)
     g_last = final_agg_view(cfg, data)
@@ -144,6 +177,8 @@ def train_teacher(
     cols = ["loss_train", "acc_train", "acc_test"]
     if want_ht:
         cols += ["head", "tail"] + (["iso"] if zero is not None else [])
+    if ew_fn is not None:
+        cols += ["linkp_train", "linkp_test"]
     records = np.zeros((epochs, len(cols)), np.float64)
     step_ms: List[float] = []
     keep_best = "SEMLP" in cfg.train_which
@@ -155,13 +190,13 @@ def train_teacher(
         t0 = time.perf_counter()
         model.train()
         opt.zero_grad(set_to_none=True)
-        _, classi, se_reg_all, _ = model(g, x, generator=drop_gen,
-                                         graph_generator=graph_gen, g_last=g_last)
-        loss = torch.zeros((), device=device)
-        if cfg.has_loss_component_nodewise:
-            loss = _nll_masked(classi, y, train_mask) * cfg.TeacherGNN.lossa_semantic
-        if se_reg_all is not None:
-            loss = loss + cfg.se_reg * se_reg_all
+        common, classi, se_reg_all, _ = model(g, x, generator=drop_gen,
+                                              graph_generator=graph_gen, g_last=g_last)
+        l_struct = linkp_train = None
+        if ew_fn is not None:
+            # the full (unmasked) embedding (trainer:418)
+            l_struct, linkp_train = ew_fn(common, pair_gen, "train")
+        loss = teacher_loss(cfg, classi, se_reg_all, y, train_mask, l_struct)
         loss.backward()
         opt.step()
         _sync(device)
@@ -170,7 +205,7 @@ def train_teacher(
         # eval-mode full forward (run_testSet)
         model.eval()
         with torch.no_grad():
-            _, classi, _, _ = model(g, x)
+            common, classi, _, _ = model(g, x)
             metrics = {
                 "loss_train": loss.detach(),
                 "acc_train": masked_accuracy(classi, y, train_mask) * 100.0,
@@ -179,6 +214,9 @@ def train_teacher(
             if want_ht:
                 metrics.update(headtail_accuracies(classi, y, train_mask,
                                                    large, small, zero))
+            if ew_fn is not None:
+                metrics["linkp_train"] = linkp_train.detach()
+                metrics["linkp_test"] = ew_fn(common, pair_gen, "test")[1]
             # one device->host copy per epoch
             records[epoch] = torch.stack(
                 [metrics[c].float() for c in cols]).cpu().numpy()
@@ -192,6 +230,13 @@ def train_teacher(
                 f"{c}={records[epoch, i]:.2f}" for i, c in enumerate(cols)))
 
     final = {k: v.detach() for k, v in model.state_dict().items()}
+    if save_dir:
+        from .checkpoint import save_train_state
+
+        save_train_state(f"{save_dir}/teacherGNN.pt", params=final, epoch=epochs)
+        if keep_best and best_state is not None:
+            save_train_state(f"{save_dir}/best-teacherGNN.pt", params=best_state,
+                             epoch=epochs)
     return TrainResult(
         columns=cols,
         records=records,

@@ -3,14 +3,15 @@
     python3 profile_step.py [--epochs 6] [--out chiprun_out/profile]
 
 For each SpMM route of the slice (``--spmm_method=auto``: the f32 kernel;
-``pallas_bf16``: the bf16 kernel) this calls the port's ``main`` on
-ogbn-arxiv's shape (the synthetic stand-in that ``chip_smoke.py`` trains)
-twice in one process: 3 unprofiled epochs to warm CUDA, cuBLAS and the
+``pallas_bf16``: the bf16 kernel), with the node-classification loss and
+with the I2-GTL edgewise loss (``--exp_mode=I2_GTL --task=nodeC``), this
+calls the port's ``main`` on ogbn-arxiv's shape (the synthetic stand-in that
+``chip_smoke.py`` trains) twice in one process: 3 unprofiled epochs to warm CUDA, cuBLAS and the
 kernel build, then ``--epochs`` epochs under ``torch.profiler``. Each epoch
 is one train step (forward, backward, Adam) and one eval-mode forward.
 
 From the profiled run's device events (the chrome trace, written to
-``--out``) it prints, per route:
+``--out``) it prints, per cell:
 
 - device ms by class: the SpMM kernels (every kernel the SpMM wrappers
   launch: light rows, hub chunks, their reduction), GEMMs, host<->device
@@ -37,6 +38,11 @@ import torch
 
 SLICE_ARGS = ["--dataset=ogbn-arxiv", "--train_which=TeacherGNN",
               "--device=cuda", "--log_every=0"]
+#: cell name -> its flags: each SpMM route, with either teacher loss
+CELLS = {f"{loss}{method}": [f"--spmm_method={method}"] + flags
+         for loss, flags in (("", []), ("I2_GTL ", ["--exp_mode=I2_GTL",
+                                                    "--task=nodeC"]))
+         for method in ("auto", "pallas_bf16")}
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 #: the SpMM wrappers' kernels (csrc/spmm_csr.cu): light rows, hub chunks and
 #: their reduction
@@ -124,19 +130,19 @@ def main() -> int:
     card_name = card()
     os.makedirs(args.out, exist_ok=True)
     report = {"card": card_name, "epochs": args.epochs, "cells": {}}
-    for method in ("auto", "pallas_bf16"):
-        argv = SLICE_ARGS + [f"--spmm_method={method}"]
+    for cell, flags in CELLS.items():
+        argv = SLICE_ARGS + flags
         port_main.main(argv + ["--epochs=3"])  # warm-up, not profiled
         with torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]) as prof:
             res = port_main.main(argv + [f"--epochs={args.epochs}"])
-        trace = os.path.join(args.out, f"trace_{method}.json")
+        trace = os.path.join(args.out, f"trace_{cell.replace(' ', '_')}.json")
         prof.export_chrome_trace(trace)
         s = summarize(trace)
         s["step_ms"] = res[0].step_ms
-        report["cells"][method] = s
-        print(f"== --spmm_method={method}: {args.epochs} epochs, {card_name}")
+        report["cells"][cell] = s
+        print(f"== {' '.join(flags)}: {args.epochs} epochs, {card_name}")
         print(f"  device ms {s['device_ms']:.3f}; loop span "
               f"{s['loop_span_ms']:.3f} ms, busy {s['loop_busy_ms']:.3f} ms, "
               f"idle share {s['loop_idle_share']:.4f}")

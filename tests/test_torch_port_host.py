@@ -155,14 +155,18 @@ def test_prepare_matches(rng):
 
 
 def test_load_dataset_synthetic_and_raw_files(tmp_path):
+    """No files: the synthetic stand-in; raw Cora files: the reader's
+    arrays, both equal to the JAX package's."""
     small = tcfg.build_config(dataset="TEXAS", train_which="TeacherGNN")
     jd = jds.load_dataset(jcfg.build_config(dataset="TEXAS"), str(tmp_path))
     assert_same_fields(tds.load_dataset(small, str(tmp_path)), jd)
     cfg = tcfg.build_config(dataset="Cora", train_which="TeacherGNN")
-    os.makedirs(tmp_path / "Cora" / "raw")
-    (tmp_path / "Cora" / "raw" / "ind.cora.x").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tds.load_dataset(cfg, str(tmp_path))
+    tsyn.write_fake_planetoid_raw(str(tmp_path), "cora", n_node=300, n_feat=40,
+                                  n_class=3, n_allx=200, n_train=30, n_edge_und=400)
+    got = tds.load_dataset(cfg, str(tmp_path))
+    assert got.name == "Cora" and got.x.shape == (300, 40)
+    assert_same_fields(got, jds.load_dataset(jcfg.build_config(dataset="Cora"),
+                                             str(tmp_path)))
     with pytest.raises(ValueError, match="unknown dataset"):
         tds.load_dataset(dataclasses.replace(cfg, dataset="nope"), None)
 
@@ -360,6 +364,38 @@ for kw in (dict(encoder="GCN", edge_lp_mode="logit", eval_metric="mrr"),
     out = lpm.train_linkpred(cfg, g2.x, g2.edge_index, g2.n_node, epochs=1,
                              split_edge=se)
     assert np.isfinite(list(out["stats"].values())).all(), (kw, out["stats"])
+import tempfile
+import torch
+from gnn_tail_generalization_tpu_torch import main as port_main
+from gnn_tail_generalization_tpu_torch.data import datasets, ogb, synthetic
+from gnn_tail_generalization_tpu_torch.graph.analysis import table1_stats
+from gnn_tail_generalization_tpu_torch.graph.core import build_graph, subgraph_edges
+from gnn_tail_generalization_tpu_torch.ops.spmm import spmm_edge_grad, spmm_normalized
+from gnn_tail_generalization_tpu_torch.train import checkpoint, loops
+from gnn_tail_generalization_tpu_torch.utils import debug
+with tempfile.TemporaryDirectory() as root:
+    synthetic.write_fake_planetoid_raw(root, "cora", n_node=200, n_feat=30, n_class=3,
+                                       n_allx=150, n_train=30, n_edge_und=300)
+    assert datasets.load_dataset(build_config(dataset="Cora"), root).name == "Cora"
+    synthetic.write_fake_ogbn_arxiv_raw(root, n_node=100, n_feat=4, n_class=3, n_edge=300)
+    assert ogb.load_ogbn_arxiv(root).x.shape == (100, 4)
+    argv = ["--dataset=TEXAS", "--exp_mode=I2_GTL", "--epochs=1", "--device=cpu",
+            "--N_exp=2", "--prog=0-1", f"--records_path={root}", "--log_every=0"]
+    res = port_main.main(argv)
+    assert len(res) == 2 and res[0].columns[-1] == "linkp_test"
+    assert port_main.main(argv) == []
+    cfg = build_config(dataset="", train_which="SEMLP", N_nodes=80, num_feats=12,
+                       num_classes=3, dim_hidden=8)
+    r = loops.train_teacher(cfg, prepare(data, cfg), epochs=1, save_dir=root)
+    debug.assert_finite(checkpoint.load_train_state(root + "/best-teacherGNN.pt"))
+g = build_graph(fast_powerlaw_graph(50, 200, 0), 50, with_dense=False)
+x = torch.randn(50, 4, requires_grad=True)
+w = torch.rand(g.n_edge, requires_grad=True)
+(spmm_edge_grad(g, x, w).sum() + spmm_normalized(g, x).sum()).backward()
+err, _ = debug.checked(lambda t: t.log())(w.detach() - 2)
+assert err.get() is not None and np.isfinite(w.grad.numpy()).all()
+assert subgraph_edges(fast_powerlaw_graph(50, 200, 0), np.arange(20), 50)[0].max() < 20
+assert table1_stats(50, np.bincount(fast_powerlaw_graph(50, 200, 0)[1], minlength=50))[0] == 50
 assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 print("NO_JAX_OK")
 """
