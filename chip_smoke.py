@@ -1,5 +1,6 @@
 """Drive the PyTorch port's teacher, trick zoo, Cold Brew student, label
-propagation and link-prediction paths on one CUDA card.
+propagation, link-prediction and self-supervised baseline paths on one CUDA
+card.
 
     python3 chip_smoke.py
 
@@ -96,8 +97,26 @@ Phases (any failure exits non-zero; nothing is caught):
    ``save_dir`` checkpoint read back onto the card gives a bit-identical
    eval forward, and a ``--prog`` run repeated skips its done cell.
 
+9. the self-supervised baselines (``baselines/``): (i) ``gen_baseline_embs``
+   for DGI, EGI and VGAE on phase 7's message edges at the API's defaults
+   (hidden 64, degree one-hot features, 50 epochs, patience 20): finite
+   [N, 64] ([N, 32] for VGAE) embeddings, the f32 kernel launched exactly
+   as derived from the epochs run (``expected_baseline_launches``), the
+   bf16 kernel and the plain version never; per algorithm the median epoch
+   ms, the host seconds of the pipeline, build and flow sampling, and the
+   peak GiB; (ii) the f32 kernel against the plain version on that graph
+   at d=64 and 32, and one step each of DGI (fixed perm), EGI (fixed perm
+   and flows) and VGAE (fixed batch and noise) from fixed weights through
+   the kernel against the plain version (``baseline_parity``, the rule of
+   ``lp_parity``); (iii) at the bench shape, ``train_pretrain_gin`` for
+   ``masking`` and ``contextpred`` (128 centres), 50 epochs each, and one
+   ``StructFeatPretrain`` loss and backward on a 30%-edge-masked graph:
+   finite, with their launch counts; (iv) ``egi_bound`` between the bench
+   and the citation2 graphs (64 pairs), with its host seconds.
+
 Prints the kernels' JSON line (launches summed over every phase; phase 7's
-numbers under ``linkpred``, phase 8's under ``cli``), then as the last line
+numbers under ``linkpred``, phase 8's under ``cli``, phase 9's under
+``baselines``), then as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 import contextlib
@@ -166,6 +185,8 @@ STAR_NODES, STAR_EDGES = 100_000, 1_000_000  # phase 2's star graph
 READER_ARGS = SLICE_ARGS + ["--spmm_method=auto"]
 I2GTL_NODEC_ARGS = SLICE_ARGS + ["--exp_mode=I2_GTL", "--task=nodeC"]
 N_EXP = 3
+# phase 9: gen_baseline_embs's defaults
+BASELINE_HIDDEN, BASELINE_EPOCHS = 64, 50
 
 
 def log(msg: str) -> None:
@@ -837,8 +858,9 @@ def run_linkpred(cfg, x, split_edge, msg, n_node, expect, tag, card_name,
             "peak_gib": peak_gb}
 
 
-def linkpred_phase(card_name: str, totals: dict, dev) -> dict:
-    """Phase 7: I2-GTL link prediction at the ogbl-citation2 shape."""
+def linkpred_phase(card_name: str, totals: dict, dev) -> tuple:
+    """Phase 7: I2-GTL link prediction at the ogbl-citation2 shape. Returns
+    its numbers and the message edges, which phase 9 trains on."""
     from gnn_tail_generalization_tpu_torch import main as port_main
     from gnn_tail_generalization_tpu_torch.linkpred import model as lpm
     from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
@@ -930,7 +952,7 @@ def linkpred_phase(card_name: str, totals: dict, dev) -> dict:
             "bench_timed": timed,
             "default": {**default_run,
                         "step_ms": default_run["epoch_s"][1] / 8 * 1e3},
-            "parity": parity, "others": others, "cli": cli}
+            "parity": parity, "others": others, "cli": cli}, msg
 
 
 def reader_phase(card_name: str, totals: dict, root: str) -> dict:
@@ -1153,6 +1175,236 @@ def cli_phase(gb, pd, card_name: str, totals: dict, slice_step_ms: dict) -> dict
             "spmm_edge_grad": edge_grad, "multiseed": multiseed, "checkpoint": ckpt}
 
 
+def row_shuffled(g, seed: int):
+    """``g`` (on the card) with the edges of every row of both CSRs in
+    another order: the same adjacency, summed in another order, in a few
+    ms where a host rebuild from permuted edges (``reordered_graph``) takes
+    9-16 s at 33M edges. Only the SpMM reads the result, so ``t_from_fwd``
+    is left as it was."""
+    from gnn_tail_generalization_tpu_torch.graph.core import edge_rows
+
+    gen = torch.Generator(device=g.indptr.device).manual_seed(seed)
+
+    def shuffle(indptr, indices, weight):
+        rows = edge_rows(indptr, indices.numel()).double()
+        order = torch.argsort(rows + torch.rand(rows.shape, generator=gen,
+                                                device=rows.device, dtype=torch.float64))
+        return indices[order].contiguous(), weight[order].contiguous()
+
+    ix, w = shuffle(g.indptr, g.indices, g.weight)
+    ix_t, w_t = shuffle(g.indptr_t, g.indices_t, g.weight_t)
+    return dataclasses.replace(g, indices=ix, weight=w, indices_t=ix_t, weight_t=w_t)
+
+
+def baseline_grads(model, args) -> tuple:
+    """Loss and gradients (None where a parameter takes no part) of one
+    train-mode step, no update, on a copy of ``model``."""
+    model = copy.deepcopy(model).train()
+    loss = model(*args)
+    loss.backward()
+    return loss.item(), {k: None if p.grad is None else p.grad.detach().clone()
+                         for k, p in model.named_parameters()}
+
+
+def baseline_parity(tag, model, args, args_re) -> dict:
+    """One step from ``model``'s weights through the f32 kernel against the
+    plain version (``plain_kernels``), loss and every gradient within the
+    larger of REL_TOL and 4x the plain step's own sum-order floor
+    (``args_re``: the same inputs on ``row_shuffled``), as ``lp_parity``.
+    The GIN layers' pre-batch-norm biases have a gradient that is zero up
+    to rounding: both steps must keep it there (<= 1e-5 of the largest
+    gradient), as the CPU tests hold it."""
+    loss_k, grads_k = baseline_grads(model, args)
+    with plain_kernels():
+        loss_p, grads_p = baseline_grads(model, args)
+        loss_f, grads_f = baseline_grads(model, args_re)
+    scale = max(g.abs().max().item() for g in grads_p.values() if g is not None)
+    rows = {"loss": (abs(loss_k - loss_p) / abs(loss_p), abs(loss_f - loss_p) / abs(loss_p))}
+    rounding = []
+    for k, gp in grads_p.items():
+        if gp is None:  # no part in the loss (EGI's fc_m at two hops)
+            assert grads_k[k] is None, (tag, k)
+            continue
+        assert torch.isfinite(grads_k[k]).all(), (tag, k)
+        if k.endswith("dense.1.bias"):
+            worst = max(grads_k[k].abs().max().item(), gp.abs().max().item())
+            assert worst <= 1e-5 * scale, (tag, k, worst, scale)
+            rounding.append(k)
+            continue
+        rows[k] = (rel_err(grads_k[k], gp), rel_err(grads_f[k], gp))
+    log(f"  {tag}: loss kernel={loss_k:.8f} plain={loss_p:.8f}; rounding-level "
+        f"(pre-batch-norm) gradients in both: {rounding}")
+    for k, (rel, floor) in rows.items():
+        bound = max(REL_TOL, 4 * floor)
+        log(f"  {tag} {k:32s} rel={rel:.3e} order floor={floor:.3e} (bound {bound:.1e})")
+        assert rel <= bound, (tag, k, rel, bound)
+    return {k: {"rel": r, "floor": f} for k, (r, f) in rows.items()}
+
+
+def expected_baseline_launches(alg: str, epochs: int) -> dict:
+    """The f32 kernel's launches of ``gen_baseline_embs`` at more than 4,096
+    nodes: per epoch, each two-layer GIN pass aggregates the features (no
+    gradient, so no backward launch) and then the first layer's output
+    (forward and transposed backward) -- DGI runs two passes, EGI one;
+    VGAE's base aggregates the features, its two towers each the base's
+    output (forward and backward). The final embedding is two forwards."""
+    per_epoch = {"DGI": 2 * 3, "EGI": 3, "VGAE": 1 + 2 * 2}[alg]
+    return {"spmm_csr_f32": per_epoch * epochs + 2, "spmm_csr_bf16": 0,
+            "spmm_csr_plain": 0}
+
+
+def baselines_phase(msg, gb, card_name: str, totals: dict, dev) -> dict:
+    """Phase 9: the self-supervised baselines on the card."""
+    from gnn_tail_generalization_tpu_torch.baselines import api, dgi, egi, vgae
+    from gnn_tail_generalization_tpu_torch.baselines import pretrain_gin as pg
+    from gnn_tail_generalization_tpu_torch.baselines import structure_pretrain as sp
+    from gnn_tail_generalization_tpu_torch.baselines.egi_bound import egi_bound
+    from gnn_tail_generalization_tpu_torch.graph.core import (
+        build_graph, edge_rows, standard_pipeline)
+    from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
+
+    t_phase = time.perf_counter()
+    out = {"gen_baseline_embs": {}}
+    log(f"  (i) gen_baseline_embs at the citation2 shape ({C2_NODES} nodes, "
+        f"hidden {BASELINE_HIDDEN}, {BASELINE_EPOCHS} epochs, patience 20)")
+    for alg in ("DGI", "EGI", "VGAE"):
+        stats = {}
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        embs = api.gen_baseline_embs(msg, C2_NODES, alg, hidden_dim=BASELINE_HIDDEN,
+                                     epochs=BASELINE_EPOCHS, device=dev, stats=stats)
+        run_s = time.perf_counter() - t0
+        counts = dict(K.LAUNCHES)
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        expect = expected_baseline_launches(alg, stats["epochs_run"])
+        width = 32 if alg == "VGAE" else BASELINE_HIDDEN
+        epoch_ms = statistics.median(stats["epoch_ms"])
+        sample_s = sum(stats.get("sample_s", []))
+        log(f"  {alg}: embs {embs.shape}, {stats['epochs_run']} epochs (best "
+            f"{stats['best_epoch']}), launches {counts}, median epoch {epoch_ms:.3f} ms, "
+            f"losses first/last {stats['loss'][0]:.5f}/{stats['loss'][-1]:.5f}; host s: "
+            f"pipeline {stats['pipeline_s']:.2f}, build {stats['build_s']:.2f}, flow "
+            f"sampling {sample_s:.3f}; run {run_s:.1f} s, peak {peak_gib:.2f} GiB "
+            f"[{card_name}]")
+        assert embs.shape == (C2_NODES, width) and np.isfinite(embs).all(), alg
+        assert counts == expect, f"{alg} launched {counts}, expected {expect}"
+        for k, v in counts.items():
+            totals[k] += v
+        out["gen_baseline_embs"][alg] = {
+            "epochs_run": stats["epochs_run"], "best_epoch": stats["best_epoch"],
+            "launches": counts, "epoch_ms": stats["epoch_ms"], "median_epoch_ms": epoch_ms,
+            "pipeline_s": stats["pipeline_s"], "build_s": stats["build_s"],
+            "sample_s": sample_s, "run_s": run_s, "peak_gib": peak_gib}
+        del embs
+        torch.cuda.empty_cache()
+
+    log("  (ii) one step each at the citation2 shape, f32 kernel vs plain version")
+    t0 = time.perf_counter()
+    e = standard_pipeline(msg, C2_NODES)
+    g_host = build_graph(e, C2_NODES, with_dense=False, with_plans=True)
+    x = torch.as_tensor(api.degree_bucketing(e, C2_NODES, BASELINE_HIDDEN), device=dev)
+    host_s = time.perf_counter() - t0
+    g = g_host.to(dev)
+    g_re = row_shuffled(g, 5)
+    log(f"  baseline graph: {g.n_edge} edges (message edges + self loops), host "
+        f"pipeline + build {host_s:.1f} s")
+    kernel_ms = {}
+    gen = torch.Generator(device=dev).manual_seed(4)
+    for d in (BASELINE_HIDDEN, 32):
+        xd = torch.randn(C2_NODES, d, generator=gen, device=dev)
+        kernel_ms[f"d={d}"] = compare("spmm_csr_f32", K.spmm_csr_f32, g, xd, False,
+                                      card_name, "citation2 baseline fwd", reps=10)
+    del xd
+    n = C2_NODES
+    perm = torch.randperm(n, generator=gen, device=dev)
+    nprng = np.random.default_rng(0)
+    flows = egi.sample_ego_flows(g_host.indptr.numpy(), g_host.indices.numpy(),
+                                 nprng.choice(n, size=64, replace=False), 2, 5,
+                                 nprng).to(dev)
+    bidx = torch.randperm(n, generator=gen, device=dev)[:256]
+    noise = torch.randn(n, 32, generator=gen, device=dev)
+    init = torch.Generator().manual_seed(0)  # the weights are drawn on the host
+    models = {"DGI": dgi.DGI(BASELINE_HIDDEN, BASELINE_HIDDEN, generator=init).to(dev),
+              "EGI": egi.EGI(BASELINE_HIDDEN, BASELINE_HIDDEN, generator=init).to(dev),
+              "VGAE": vgae.VGAE(BASELINE_HIDDEN, BASELINE_HIDDEN, 32, generator=init).to(dev)}
+    extra = {"DGI": (perm,), "EGI": (flows, perm), "VGAE": (bidx, noise)}
+    out["parity"] = {alg: baseline_parity(alg, m, (g, x, *extra[alg]), (g_re, x, *extra[alg]))
+                     for alg, m in models.items()}
+    out["kernel_ms"] = kernel_ms
+    del g, g_re, x, models, noise, perm
+    torch.cuda.empty_cache()
+
+    log(f"  (iii) GIN pretraining and StructFeatPretrain at the bench shape "
+        f"({gb.n_node} nodes, {gb.n_edge} edges)")
+    e_b = np.stack([gb.indices.numpy(), edge_rows(gb.indptr, gb.n_edge).numpy()])
+    x_b = api.degree_bucketing(e_b, gb.n_node, BASELINE_HIDDEN)
+    out["pretrain_gin"] = {}
+    for variant, per_epoch in (("masking", 3), ("contextpred", 6)):
+        stats = {}
+        K.reset_launch_counts()
+        embs, _ = pg.train_pretrain_gin(gb, x_b, variant, hidden_dim=BASELINE_HIDDEN,
+                                        epochs=BASELINE_EPOCHS, device=dev, stats=stats)
+        counts = dict(K.LAUNCHES)
+        # masking: one two-layer GIN pass an epoch; contextpred: the
+        # substruct pass on the graph and the context pass on the union
+        expect = {"spmm_csr_f32": per_epoch * BASELINE_EPOCHS + 2, "spmm_csr_bf16": 0,
+                  "spmm_csr_plain": 0}
+        epoch_ms = statistics.median(stats["epoch_ms"])
+        ctx = f", context builder {stats['context_s']:.2f} s" if "context_s" in stats else ""
+        log(f"  {variant}: launches {counts}, median epoch {epoch_ms:.3f} ms, loss "
+            f"first/last {stats['loss'][0]:.5f}/{stats['loss'][-1]:.5f}{ctx} "
+            f"[{card_name}]")
+        assert counts == expect, f"{variant} launched {counts}, expected {expect}"
+        assert torch.isfinite(embs).all() and np.isfinite(stats["loss"]).all(), variant
+        for k, v in counts.items():
+            totals[k] += v
+        out["pretrain_gin"][variant] = {"launches": counts, "median_epoch_ms": epoch_ms,
+                                        "context_s": stats.get("context_s")}
+        del embs
+
+    rng = np.random.default_rng(6)
+    t0 = time.perf_counter()
+    keep = rng.random(e_b.shape[1]) > 0.3
+    gm = build_graph(e_b[:, keep], gb.n_node, with_dense=False)
+    cents = sp.compute_centralities(e_b, gb.n_node)
+    host_s = time.perf_counter() - t0
+    n_b, half = gb.n_node, 2048
+    pos = e_b[:, rng.integers(0, e_b.shape[1], half)].T
+    link_edges = np.concatenate([pos, rng.integers(0, n_b, (half, 2))])
+    link_labels = np.concatenate([np.ones(half), np.zeros(half)]).astype(np.int32)
+    pairs = rng.integers(0, n_b, (2 * half, 2))
+    cent_labels = (cents[pairs[:, 0]] > cents[pairs[:, 1]]).astype(np.int32)
+    model = sp.StructFeatPretrain(BASELINE_HIDDEN, BASELINE_HIDDEN,
+                                  generator=torch.Generator().manual_seed(0)).to(dev)
+    K.reset_launch_counts()
+    loss = model(gb.to(dev), gm.to(dev), torch.as_tensor(x_b, device=dev),
+                 *(torch.as_tensor(a, device=dev)
+                   for a in (link_edges, link_labels, pairs, cent_labels)))
+    loss.backward()
+    counts = dict(K.LAUNCHES)
+    grads_ok = all(torch.isfinite(p.grad).all() for p in model.parameters())
+    log(f"  StructFeatPretrain: loss {loss.item():.5f}, gradients finite {grads_ok}, "
+        f"launches {counts}; host masked graph + centralities {host_s:.2f} s")
+    # two two-layer GIN stacks on a trained input: forward and backward each
+    assert counts == {"spmm_csr_f32": 8, "spmm_csr_bf16": 0, "spmm_csr_plain": 0}, counts
+    assert np.isfinite(loss.item()) and grads_ok
+    for k, v in counts.items():
+        totals[k] += v
+    out["struct_pretrain"] = {"loss": loss.item(), "launches": counts, "host_s": host_s}
+
+    log("  (iv) egi_bound between the bench graph and the citation2 graph, 64 pairs")
+    t0 = time.perf_counter()
+    bound_val = egi_bound(e_b, n_b, msg, C2_NODES, n_pairs=64)
+    bound_s = time.perf_counter() - t0
+    log(f"  egi_bound = {bound_val:.6f}, host {bound_s:.2f} s [{card_name} host]")
+    assert np.isfinite(bound_val) and bound_val >= 0
+    out["egi_bound"] = {"value": bound_val, "host_s": bound_s}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 9: {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
@@ -1274,11 +1526,15 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     log("== phase 7: link prediction at the ogbl-citation2 shape")
-    linkpred = linkpred_phase(card_name, totals, dev)
+    linkpred, msg = linkpred_phase(card_name, totals, dev)
     torch.cuda.empty_cache()
 
     log("== phase 8: the reader, the I2-GTL teacher, multi-seed, checkpoints")
     cli = cli_phase(gb, pd, card_name, totals, step_ms)
+    torch.cuda.empty_cache()
+
+    log("== phase 9: the self-supervised baselines")
+    baselines = baselines_phase(msg, gb, card_name, totals, dev)
 
     assert totals["spmm_csr_plain"] == 0, totals
     kernels = [{"name": name, "route": "cuda", "source": SOURCE,
@@ -1287,7 +1543,7 @@ def main() -> int:
     print(json.dumps({"kernels": kernels, "step_ms": step_ms,
                       "student": student, "trick_step_ms": tricks,
                       "propagation": propagation, "linkpred": linkpred,
-                      "cli": cli, "card": card_name}))
+                      "cli": cli, "baselines": baselines, "card": card_name}))
     print(card_name)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

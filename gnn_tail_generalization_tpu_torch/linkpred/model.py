@@ -35,6 +35,7 @@ from torch import nn
 
 from ..graph.core import (Graph, add_self_loops, build_graph, edge_rows,
                           gcn_norm_weights, remove_self_loops, symmetrize)
+from ..utils.device import resolve_device
 from . import losses as L
 from . import metrics as M
 from . import sampling
@@ -383,7 +384,7 @@ def train_linkpred(
     device_epoch: bool = True,
     mesh=None,
     *,
-    device="cpu",
+    device="cuda",
 ) -> Dict[str, Any]:
     """The run x epoch loop of trainer_link_prediction.py:215-431. With
     ``split_edge`` given (e.g. from linkpred/surgery.py transfer settings)
@@ -400,6 +401,7 @@ def train_linkpred(
     if mesh is not None:
         raise NotImplementedError(
             "sharded link prediction (mesh=) is not ported yet (ROADMAP A12)")
+    device = resolve_device(device)
     if split_edge is None:
         split_edge, msg_edges = simple_split_edges(edge_index, n_node,
                                                    seed=seed)
@@ -409,7 +411,6 @@ def train_linkpred(
     if cfg.encoder in ("CN", "AA", "PPR"):
         return _heuristic_run(cfg, split_edge, msg_edges, n_node)
 
-    device = torch.device(device)
     g = link_graph(cfg, msg_edges, n_node).to(device)
     xd = (torch.zeros(n_node, 1, device=device) if x is None
           else torch.as_tensor(x, dtype=torch.float32, device=device))

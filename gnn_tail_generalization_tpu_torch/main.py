@@ -36,6 +36,7 @@ from .config import Config, apply_arch_configs, build_config
 from .data.datasets import PreparedData, load_dataset, prepare
 from .data.synthetic import fast_powerlaw_graph
 from .train.loops import TrainResult, run_experiment
+from .utils.device import resolve_device
 
 
 def parse_args(argv: Optional[List[str]] = None):
@@ -168,9 +169,7 @@ def main(argv: Optional[List[str]] = None
     overrides, ns = parse_args(argv)
     cfg = build_config(**overrides)
     _check_supported(ns)
-    device = torch.device(ns.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device=cuda, but torch finds no CUDA device")
+    device = resolve_device(ns.device)
     # f32 matmuls in full f32, as the JAX package's Precision.HIGHEST
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

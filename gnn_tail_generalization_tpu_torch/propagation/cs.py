@@ -29,6 +29,7 @@ from ..nn.dropout import dropout as apply_dropout
 from ..nn.mlp import dense_layer
 from ..nn.norms import BatchNorm
 from ..train.evalutil import masked_accuracy
+from ..utils.device import resolve_device
 from . import correlation as corr
 from . import diffusion as diff
 
@@ -134,13 +135,13 @@ def lp_step(cfg: Config, data: PreparedData, model_out: torch.Tensor,
 
 
 def run_cs_pipeline(cfg: Config, data: PreparedData, seed: int = 0,
-                    epochs: int = 100, *, device="cpu") -> Dict:
+                    epochs: int = 100, *, device="cuda") -> Dict:
     """LabelPropagation_Adj.train_net (LP_Adj.py:37-66) run to completion:
     preprocess once on the host, train the mid MLP full-batch (Adam at
     ``cfg.lr``), C&S the best-by-valid output with the train nodes as the
     labels. Returns acc_train / acc_test (x100), the mid step's best
     valid accuracy, and the C&S output ``out``."""
-    device = torch.device(device)
+    device = resolve_device(device)
     cfg = dataclasses.replace(
         cfg, lpStep=dataclasses.replace(cfg.lpStep, no_prep=False))
     embs = pre_step(cfg, data)

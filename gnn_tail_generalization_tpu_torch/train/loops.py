@@ -43,6 +43,7 @@ from ..models.semlp import GraphMLP, SEMLPPart1, SEMLPPart2, neighbor_contrastiv
 from ..models.teacher import TeacherGNN
 from ..nn.norms import norm_applies
 from ..propagation import correlation as corr
+from ..utils.device import resolve_device
 from .evalutil import headtail_accuracies, masked_accuracy
 from .optim import make_optimizer
 
@@ -121,7 +122,7 @@ def train_teacher(
     epochs: Optional[int] = None,
     log_every: int = 0,
     *,
-    device="cpu",
+    device="cuda",
     init_state: Optional[Mapping[str, Any]] = None,
     save_dir: Optional[str] = None,
 ) -> TrainResult:
@@ -141,7 +142,7 @@ def train_teacher(
     written to ``<save_dir>/teacherGNN.pt``, and when training for SEMLP
     the best one to ``best-teacherGNN.pt`` (train/checkpoint.py)."""
     epochs = cfg.epochs if epochs is None else epochs
-    device = torch.device(device)
+    device = resolve_device(device)
 
     model = TeacherGNN(cfg, generator=torch.Generator().manual_seed(seed))
     if init_state is not None:
@@ -256,7 +257,7 @@ def _on_device(module: torch.nn.Module, state: Mapping[str, torch.Tensor],
 
 def collect_teacher_se(cfg: Config, data: PreparedData,
                        teacher_state: Mapping[str, torch.Tensor], *,
-                       device="cpu",
+                       device="cuda",
                        generator: Optional[torch.Generator] = None
                        ) -> torch.Tensor:
     """The teacher's SE table [N, se_dim]: the concatenation of every
@@ -264,7 +265,7 @@ def collect_teacher_se(cfg: Config, data: PreparedData,
     An eval-mode forward by default; in train mode, with dropout drawn from
     ``generator``, when ``cfg.bug_compat_part1_target_dropout`` is set (the
     reference's single dropout sample as the part-1 target)."""
-    device = torch.device(device)
+    device = resolve_device(device)
     with torch.device("meta"):
         model = TeacherGNN(cfg)
     model = _on_device(model, teacher_state, device)
@@ -296,13 +297,13 @@ def train_semlp_part1(
     epochs: Optional[int] = None,
     log_every: int = 0,
     *,
-    device="cpu",
+    device="cuda",
 ) -> TrainResult:
     """SEMLP part 1: regress the teacher's SE rows from the node features,
     MSE on ``min(batch_size, n_train)`` train nodes per step; ``loss_test``
     is the MSE on a batch drawn from the test nodes after the step."""
     epochs = cfg.epochs if epochs is None else epochs
-    device = torch.device(device)
+    device = resolve_device(device)
     se = teacher_se.to(device)
     x = torch.as_tensor(data.x).to(device)
     train_idx = torch.as_tensor(data.train_idx).to(device)
@@ -390,7 +391,7 @@ def train_semlp_part2(
     epochs: Optional[int] = None,
     log_every: int = 0,
     *,
-    device="cpu",
+    device="cuda",
 ) -> TrainResult:
     """SEMLP part 2, or a student MLP when downgraded (StudentBaseMLP,
     GraphMLP, ``SEMLP__downgrade_to_MLP``): cross-entropy on random train
@@ -399,7 +400,7 @@ def train_semlp_part2(
     ``eval_ms`` of the result holds the head/tail/iso forwards' time per
     epoch."""
     epochs = cfg.epochs if epochs is None else epochs
-    device = torch.device(device)
+    device = resolve_device(device)
     x = torch.as_tensor(data.x).to(device)
     y = torch.as_tensor(data.y).to(device)
     train_idx = torch.as_tensor(data.train_idx).to(device)
@@ -523,12 +524,12 @@ def train_semlp_part2(
 
 
 def run_pure_lp(cfg: Config, data: PreparedData, alpha: float = 0.5,
-                num_propagations: int = 50, *, device="cpu") -> Dict[str, float]:
+                num_propagations: int = 50, *, device="cuda") -> Dict[str, float]:
     """trainer:33-63: DAD label propagation from the train labels on
     ``device``; accuracies (x100, rounded to 2 places) over the train nodes
     and over every other node (``~train_mask``, not ``data.test_mask``, as
     the JAX package's single-device branch)."""
-    device = torch.device(device)
+    device = resolve_device(device)
     dad, _, _ = corr.gen_normalized_adjs(data.edge_index, data.n_node,
                                          which={"DAD"})
     y = torch.as_tensor(data.y, device=device)
@@ -544,11 +545,12 @@ def run_pure_lp(cfg: Config, data: PreparedData, alpha: float = 0.5,
 
 def run_experiment(cfg: Config, data: PreparedData, seed: int = 0,
                    epochs: Optional[int] = None, log_every: int = 0, *,
-                   device="cpu") -> Union[TrainResult, Dict[str, float]]:
+                   device="cuda") -> Union[TrainResult, Dict[str, float]]:
     """The dispatch on ``cfg.train_which`` (trainer_node_classification.py:
     10-30). SEMLP: teacher (best-by-test weights kept) -> SE table -> part 1
     -> part 2; the result is part 2's, with the teacher's and part 1's
     results under ``extra``. LP returns ``run_pure_lp``'s dict."""
+    device = resolve_device(device)
     tw = cfg.train_which
     if tw == "TeacherGNN":
         return train_teacher(cfg, data, seed, epochs, log_every, device=device)

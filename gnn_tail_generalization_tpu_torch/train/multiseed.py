@@ -17,6 +17,7 @@ import numpy as np
 
 from ..config import Config
 from ..data.datasets import PreparedData
+from ..utils.device import resolve_device
 from .loops import TrainResult, train_teacher
 
 
@@ -27,10 +28,11 @@ def train_teacher_multiseed(
     epochs: Optional[int] = None,
     log_every: int = 0,
     *,
-    device="cpu",
+    device="cuda",
 ) -> List[TrainResult]:
     """One ``TrainResult`` per seed, in the order of ``seeds``; the JAX
     package's per-epoch ``[multiseed]`` lines are printed after the runs."""
+    device = resolve_device(device)
     results = [train_teacher(cfg, data, seed, epochs, device=device)
                for seed in seeds]
     if log_every:

@@ -12,7 +12,8 @@ a ``Linear.weight`` ``[out, in]``, a ``LayerNorm`` or ``BatchNorm``
 ``scale`` becomes its ``weight``, a ``BatchNorm``'s ``mean`` and ``var``
 become its ``running_mean`` and ``running_var`` buffers, the conv kernel
 keeps its ``[in, out]`` layout, and a parameter of the module itself
-(``alphas``, ``input_embs``) keeps its name.
+(``alphas``, ``input_embs``, GIN's ``eps``, the NTN's ``w``/``v``/``b``, the
+layer mixtures' ``link_psi`` ...) keeps its name and layout.
 """
 from __future__ import annotations
 
@@ -23,6 +24,13 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..baselines import dgi as bl_dgi
+from ..baselines import egi as bl_egi
+from ..baselines import encoders as bl_enc
+from ..baselines import mi as bl_mi
+from ..baselines import pretrain_gin as bl_gin
+from ..baselines import structure_pretrain as bl_sp
+from ..baselines import vgae as bl_vgae
 from ..config import Config
 from ..linkpred import encoders as lp_enc
 from ..linkpred import predictors as lp_pred
@@ -94,7 +102,28 @@ def _child(module: nn.Module, name: str) -> Optional[str]:
                 "Dense_3": "skip"}.get(name)
     if isinstance(module, (lp_pred.BilinearPredictor, lp_pred._Tower)):
         return f"dense.{i}" if kind == "Dense" else None
+    if isinstance(module, _BASELINE_SETUP):
+        # submodules named in flax's setup keep their names; a list built
+        # there is numbered (layers_0, cent_decoders_1)
+        return name if i is None else f"{kind}.{i}"
+    if isinstance(module, bl_enc.GINEncoder):
+        return f"layers.{i}" if kind == "GINLayer" else None
+    if isinstance(module, bl_enc.GINLayer):
+        return {"Dense_0": "dense.0", "Dense_1": "dense.1", "BatchNorm_0": "bn"}.get(name)
+    if isinstance(module, (bl_enc.MeanSAGELayer, bl_enc.GCNSAGELayer)):
+        return "lin" if name == "Dense_0" else None
+    if isinstance(module, bl_sp.NTNDecoder):
+        return {"NeuralTensorLayer_0": "ntn", "Dense_0": "out"}.get(name)
+    if isinstance(module, bl_mi.Mine):
+        return f"dense.{i}" if kind == "Dense" else None
     return None
+
+
+#: the baselines' modules whose flax submodules are named in ``setup`` or
+#: by ``name=`` (SubGDiscriminator's fc_x, fc_m, linear, U_s)
+_BASELINE_SETUP = (bl_dgi.DGI, bl_egi.EGI, bl_egi.SubGDiscriminator, bl_vgae.VGAE,
+                   bl_gin.MaskingGIN, bl_gin.ContextPredGIN,
+                   bl_sp.StructFeatPretrain)
 
 
 def _port_name(module: nn.Module, parts) -> Tuple[str, bool]:
@@ -161,3 +190,12 @@ def linkpred_params_from_jax(flat: Mapping[str, np.ndarray],
     with torch.device("meta"):
         model = LinkPredModel(cfg, n_node, num_node_feats)
     return state_dict_from_flax(flat, model)
+
+
+def baseline_params_from_jax(flat: Mapping[str, np.ndarray], module: nn.Module
+                             ) -> Dict[str, torch.Tensor]:
+    """The state_dict of a baseline ``module`` of the port (``DGI``, ``EGI``,
+    ``VGAE``, ``MaskingGIN``, ``ContextPredGIN``, ``StructFeatPretrain``,
+    ``Mine``, or one of their parts) holding the flax parameters and batch
+    statistics ``flat`` of its JAX counterpart."""
+    return state_dict_from_flax(flat, module)

@@ -261,7 +261,7 @@ def _golden_teacher(root, **over):
     data = tds.load_dataset(cfg, root)
     assert data.name == "Cora", "the raw reader did not fire"
     pd = tds.prepare(data, cfg)
-    res = loops.train_teacher(cfg, pd, seed=0)
+    res = loops.train_teacher(cfg, pd, seed=0, device="cpu")
     assert res.records.shape[0] == cfg.epochs == 1500
     assert np.isfinite(res.records).all()
     assert res.best("acc_test") > 25.0  # the fake task is learnable
@@ -273,7 +273,7 @@ def test_golden_protocol_dryrun_traditional_gcn(fake_cora_root):
     from gnn_tail_generalization_tpu_torch.train import loops
 
     cfg, pd, res = _golden_teacher(fake_cora_root, whetherHasSE="000")
-    again = loops.train_teacher(cfg, pd, seed=0)
+    again = loops.train_teacher(cfg, pd, seed=0, device="cpu")
     np.testing.assert_array_equal(res.records, again.records)
 
 
@@ -293,5 +293,5 @@ def test_golden_protocol_dryrun_semlp_isolation(fake_cora_root):
         use_special_split=True)
     data = tds.load_dataset(cfg, fake_cora_root)
     assert data.name == "Cora"
-    res = loops.run_experiment(cfg, tds.prepare(data, cfg), seed=0)
+    res = loops.run_experiment(cfg, tds.prepare(data, cfg), seed=0, device="cpu")
     assert "iso" in res.columns and np.isfinite(res.records).all()

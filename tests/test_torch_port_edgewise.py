@@ -273,7 +273,7 @@ def test_i2gtl_teacher_step_matches_jax(trick, se):
 
 def test_i2gtl_train_teacher_three_epochs():
     cj, ct, jp, tp = setup_split()
-    res = tloops.train_teacher(ct, tp, seed=0, epochs=3)
+    res = tloops.train_teacher(ct, tp, seed=0, epochs=3, device="cpu")
     cols_j = jloops.train_teacher(cj, jp, seed=0, epochs=0).columns
     assert res.columns == cols_j
     assert res.columns[-2:] == ["linkp_train", "linkp_test"]
@@ -282,5 +282,5 @@ def test_i2gtl_train_teacher_three_epochs():
     assert (mrr > 0).all() and (mrr <= 1).all()
     assert res.last("linkp_test") == res.records[-1, -1]
     assert res.best("loss_train") == res.records[:, 0].max()
-    again = tloops.train_teacher(ct, tp, seed=0, epochs=3)
+    again = tloops.train_teacher(ct, tp, seed=0, epochs=3, device="cpu")
     np.testing.assert_array_equal(again.records, res.records)  # seeded pairs

@@ -333,12 +333,12 @@ for tw, trick in (("TeacherGNN", "InitialBatchNorm"), ("SEMLP", "InitialBatchNor
                        apply_graph_dropout=trick == "LADIES",
                        layerwise_dropout=True)
     pd = prepare(data, cfg, spmm_dense_threshold=10)
-    res = run_experiment(cfg, pd, epochs=1)
+    res = run_experiment(cfg, pd, epochs=1, device="cpu")
     records = np.array(list(res.values())) if tw == "LP" else res.records
     assert np.isfinite(records).all(), (tw, trick, records)
 cfg = build_config(dataset="", train_which="LP", N_nodes=80, num_feats=12,
                    num_classes=3, force_set_to_best_config=False)
-cs = run_cs_pipeline(cfg, pd, epochs=2)
+cs = run_cs_pipeline(cfg, pd, epochs=2, device="cpu")
 assert np.isfinite(cs["out"].numpy()).all()
 import gnn_tail_generalization_tpu_torch.linkpred.edge_lp
 import gnn_tail_generalization_tpu_torch.linkpred.encoders
@@ -362,7 +362,7 @@ for kw in (dict(encoder="GCN", edge_lp_mode="logit", eval_metric="mrr"),
     cfg = lpm.LinkPredConfig(batch_size=256, gnn_hidden_channels=8,
                              emb_hidden_channels=8, mlp_hidden_channels=8, **kw)
     out = lpm.train_linkpred(cfg, g2.x, g2.edge_index, g2.n_node, epochs=1,
-                             split_edge=se)
+                             split_edge=se, device="cpu")
     assert np.isfinite(list(out["stats"].values())).all(), (kw, out["stats"])
 import tempfile
 import torch
@@ -386,7 +386,8 @@ with tempfile.TemporaryDirectory() as root:
     assert port_main.main(argv) == []
     cfg = build_config(dataset="", train_which="SEMLP", N_nodes=80, num_feats=12,
                        num_classes=3, dim_hidden=8)
-    r = loops.train_teacher(cfg, prepare(data, cfg), epochs=1, save_dir=root)
+    r = loops.train_teacher(cfg, prepare(data, cfg), epochs=1, save_dir=root,
+                            device="cpu")
     debug.assert_finite(checkpoint.load_train_state(root + "/best-teacherGNN.pt"))
 g = build_graph(fast_powerlaw_graph(50, 200, 0), 50, with_dense=False)
 x = torch.randn(50, 4, requires_grad=True)
@@ -396,6 +397,13 @@ err, _ = debug.checked(lambda t: t.log())(w.detach() - 2)
 assert err.get() is not None and np.isfinite(w.grad.numpy()).all()
 assert subgraph_edges(fast_powerlaw_graph(50, 200, 0), np.arange(20), 50)[0].max() < 20
 assert table1_stats(50, np.bincount(fast_powerlaw_graph(50, 200, 0)[1], minlength=50))[0] == 50
+from gnn_tail_generalization_tpu_torch.baselines.api import gen_baseline_embs
+from gnn_tail_generalization_tpu_torch.baselines.egi_bound import egi_bound
+e60 = fast_powerlaw_graph(60, 200, 0)
+for alg in ("DGI", "EGI", "VGAE"):
+    embs = gen_baseline_embs(e60, 60, alg, epochs=2, hidden_dim=8, device="cpu")
+    assert embs.shape[0] == 60 and np.isfinite(embs).all(), alg
+assert np.isfinite(egi_bound(e60, 60, fast_powerlaw_graph(50, 200, 1), 50, n_pairs=4))
 assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 print("NO_JAX_OK")
 """

@@ -668,7 +668,7 @@ def test_heuristic_short_circuit_equals_jax(encoder):
     want = jlpm.train_linkpred(jlpm.LinkPredConfig(**kw), None, msg, n,
                                split_edge=split_edge)
     got = tlpm.train_linkpred(tlpm.LinkPredConfig(**kw), None, msg, n,
-                              split_edge=split_edge)
+                              split_edge=split_edge, device="cpu")
     assert got["params"] is None and got["stats"].keys() == want["stats"].keys()
     for k, v in want["stats"].items():  # the best-by-valid MRR means
         np.testing.assert_allclose(got["stats"][k], v, rtol=1e-6, err_msg=k)
@@ -700,7 +700,7 @@ def test_train_linkpred_runs_and_learns(kw):
                               **kw)
     out = tlpm.train_linkpred(cfg, None, msg, n, epochs=3, runs=2,
                               split_edge=split_edge, device_epoch=device_epoch,
-                              max_steps_per_epoch=cap)
+                              max_steps_per_epoch=cap, device="cpu")
     assert set(out["stats"]) == {"valid_mean", "valid_std", "test_mean",
                                  "test_std"}
     assert all(np.isfinite(v) for v in out["stats"].values()), out["stats"]
@@ -711,7 +711,7 @@ def test_train_linkpred_runs_and_learns(kw):
 def test_train_linkpred_refuses_a_mesh():
     with pytest.raises(NotImplementedError, match="A12"):
         tlpm.train_linkpred(tlpm.LinkPredConfig(), None, msg_graph(50), 50,
-                            mesh=object())
+                            mesh=object(), device="cpu")
 
 
 def test_i2gtl_cli_prints_the_stats_line():

@@ -170,12 +170,12 @@ def prepared_pair(rng, **extra):
 @pytest.mark.parametrize("method", ["auto", "pallas_bf16"])
 def test_run_pure_lp_matches_jax(rng, method):
     cj, ct, jp, tp = prepared_pair(rng, spmm_method=method)
-    got, want = tloops.run_pure_lp(ct, tp), jloops.run_pure_lp(cj, jp)
+    got, want = tloops.run_pure_lp(ct, tp, device="cpu"), jloops.run_pure_lp(cj, jp)
     assert got.keys() == want.keys() == {"acc_train", "acc_test"}
     n_train = tp.train_mask.sum()
     for k, count in (("acc_train", n_train), ("acc_test", 120 - n_train)):
         assert abs(got[k] - want[k]) <= 100.0 / count + 0.01, (k, got, want)
-    assert tloops.run_experiment(ct, tp) == got
+    assert tloops.run_experiment(ct, tp, device="cpu") == got
 
 
 @pytest.mark.parametrize("fn", ["double_correlation_autoscale",
@@ -239,7 +239,7 @@ def test_run_cs_pipeline_ends_finite_above_chance(rng, model):
     _, ct, _, tp = prepared_pair(rng)
     ct = dataclasses.replace(ct, midStep=dataclasses.replace(ct.midStep,
                                                              model=model))
-    res = tcs.run_cs_pipeline(ct, tp, epochs=30)
+    res = tcs.run_cs_pipeline(ct, tp, epochs=30, device="cpu")
     assert res["out"].shape == (120, 2) and torch.isfinite(res["out"]).all()
     assert res["acc_test"] > 70.0 and 0.0 <= res["acc_valid_mid"] <= 100.0
 

@@ -329,7 +329,8 @@ def test_collect_teacher_se_matches_jax(rng, trick, se, se_dim):
     jp, tp = prepared(rng, cj, ct)
     params = init(JTeacher(cj), jp.graph, jnp.asarray(jp.x), seed=3)
     want = jloops.collect_teacher_se(cj, jp, {"params": params})
-    got = tloops.collect_teacher_se(ct, tp, params_from_jax(flat(params), ct))
+    got = tloops.collect_teacher_se(ct, tp, params_from_jax(flat(params), ct),
+                                   device="cpu")
     assert got.shape == (N, se_dim) and not got.requires_grad
     close(got, want)
 
@@ -352,16 +353,16 @@ def test_proj2class_head_matches_flax(rng):
 def test_best_state_dict_is_the_best_epoch(rng):
     cj, ct = configs(dropout=0.5, lr=0.05)
     _, tp = prepared(rng, cj, ct)
-    res = tloops.train_teacher(ct, tp, seed=1, epochs=8)
+    res = tloops.train_teacher(ct, tp, seed=1, epochs=8, device="cpu")
     best = int(np.argmax(res.records[:, res.columns.index("acc_test")]))
-    again = tloops.train_teacher(ct, tp, seed=1, epochs=best + 1)
+    again = tloops.train_teacher(ct, tp, seed=1, epochs=best + 1, device="cpu")
     for k, v in again.state_dict.items():
         assert torch.equal(res.best_state_dict[k], v), k
     if best < 7:  # a snapshot, not the live parameters Adam kept updating
         assert any(not torch.equal(res.best_state_dict[k], v)
                    for k, v in res.state_dict.items())
     plain = tloops.train_teacher(dataclasses.replace(ct, train_which="TeacherGNN"),
-                                 tp, seed=1, epochs=2)
+                                 tp, seed=1, epochs=2, device="cpu")
     assert plain.best_state_dict is plain.state_dict
 
 
@@ -441,7 +442,7 @@ def test_run_experiment_semlp_through_both(rng):
     cj, ct = configs(dropout=0.2, dropout_MLP=0.2)
     jp, tp = prepared(rng, cj, ct)
     res_j = jloops.run_experiment(cj, jp, seed=0, epochs=20)
-    res_t = tloops.run_experiment(ct, tp, seed=0, epochs=20)
+    res_t = tloops.run_experiment(ct, tp, seed=0, epochs=20, device="cpu")
     assert res_t.columns == res_j.columns == [
         "loss_train", "acc_test", "head", "tail", "iso"]
     assert res_t.records.shape == res_j.records.shape == (20, 5)
@@ -466,7 +467,7 @@ def test_graphmlp_sparse_adjacency_path(rng):
         edge_index=np.stack([src, dst]), train_mask=np.arange(n) < 40,
         val_mask=None, test_mask=np.arange(n) >= 40, name="sparse"),
         ct, spmm_dense_threshold=64)
-    res = tloops.run_experiment(ct, tp, seed=0, epochs=2)
+    res = tloops.run_experiment(ct, tp, seed=0, epochs=2, device="cpu")
     assert res.records.shape == (2, 5) and np.isfinite(res.records).all()
 
 

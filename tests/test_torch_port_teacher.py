@@ -115,7 +115,8 @@ def test_train_teacher_matches_jax(rng):
     init = jloops.train_teacher(cj, jp, seed=0, epochs=0)
     res_j = jloops.train_teacher(cj, jp, seed=0, epochs=3)
     state = params_from_jax(flat(init.variables["params"]), ct)
-    res_t = tloops.train_teacher(ct, tp, seed=0, epochs=3, init_state=state)
+    res_t = tloops.train_teacher(ct, tp, seed=0, epochs=3, init_state=state,
+                                 device="cpu")
     assert res_t.columns == res_j.columns == [
         "loss_train", "acc_train", "acc_test", "head", "tail", "iso"]
     np.testing.assert_allclose(res_t.records[:, 0], res_j.records[:, 0],

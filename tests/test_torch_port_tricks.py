@@ -261,7 +261,8 @@ def test_train_teacher_batchnorm_matches_jax(rng):
     res_j = jloops.train_teacher(cj, jp, seed=0, epochs=3)
     state = params_from_jax(flat(init.variables["params"]), ct,
                             flat(init.variables["batch_stats"]))
-    res_t = tloops.train_teacher(ct, tp, seed=0, epochs=3, init_state=state)
+    res_t = tloops.train_teacher(ct, tp, seed=0, epochs=3, init_state=state,
+                                 device="cpu")
     assert res_t.columns == res_j.columns
     np.testing.assert_allclose(res_t.records[:, 0], res_j.records[:, 0],
                                rtol=1e-4)

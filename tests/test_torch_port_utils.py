@@ -103,7 +103,8 @@ def small_prepared(n=120, **over):
 @pytest.mark.parametrize("train_which", ["TeacherGNN", "SEMLP"])
 def test_train_teacher_save_dir_round_trip(tmp_path, train_which):
     cfg, pd = small_prepared(train_which=train_which)
-    res = loops.train_teacher(cfg, pd, seed=3, epochs=3, save_dir=str(tmp_path))
+    res = loops.train_teacher(cfg, pd, seed=3, epochs=3, save_dir=str(tmp_path),
+                              device="cpu")
     best = tmp_path / "best-teacherGNN.pt"
     assert best.exists() == (train_which == "SEMLP")
     state = checkpoint.load_train_state(str(tmp_path / "teacherGNN.pt"))
@@ -172,10 +173,11 @@ def test_multiseed_equals_train_teacher_per_seed(exp_mode, capsys):
     cfg, pd = small_prepared(exp_mode=exp_mode, samp_size_p=16,
                              samp_size_n_train=16, samp_size_n_test_times_p=2)
     seeds = [4, 9]
-    results = train_teacher_multiseed(cfg, pd, seeds, epochs=3, log_every=2)
+    results = train_teacher_multiseed(cfg, pd, seeds, epochs=3, log_every=2,
+                                      device="cpu")
     assert len(results) == 2
     for s, r in zip(seeds, results):
-        one = loops.train_teacher(cfg, pd, s, epochs=3)
+        one = loops.train_teacher(cfg, pd, s, epochs=3, device="cpu")
         assert r.columns == one.columns
         np.testing.assert_array_equal(r.records, one.records)
     assert ("linkp_test" in results[0].columns) == (exp_mode == "I2_GTL")
