@@ -1,8 +1,8 @@
 """Dataset container and the node-classification preparation pipeline.
 
-The port of ``gnn_tail_generalization_tpu/data/datasets.py`` (single-device
-parts; the sharded ``prepare_sharded``/``prepare_hier`` come with the
-multi-device layer). Reference parity: the reference's ``trainer_node_classification.py``
+The port of ``gnn_tail_generalization_tpu/data/datasets.py``: ``prepare``,
+and ``prepare_sharded`` for one rank of a row-sharded run (``prepare_hier``
+comes with the two-level layout, ROADMAP A12b). Reference parity: the reference's ``trainer_node_classification.py``
 (load_data: Planetoid public split with NormalizeFeatures, the Cora
 first-600-train special split, symmetrize + de/re-self-loop edge pipeline) and
 ``utils.py:680-752`` (degree analysis + isolation crafting).
@@ -11,13 +11,15 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 
 from ..config import Config
 from ..graph import analysis
 from ..graph.core import Graph, build_graph, standard_pipeline
+from ..parallel.comm import Comm
+from ..parallel.distgraph import DistGraph, build_dist_graph, pad_rows_np
 
 
 @dataclass
@@ -36,7 +38,9 @@ class NodeData:
 @dataclass
 class PreparedData:
     """Everything the train loop needs, after the full preprocessing chain.
-    Arrays are host numpy; ``graph`` is a CPU ``Graph`` (``.to(device)``)."""
+    Arrays are host numpy; ``graph`` is a CPU ``Graph`` (``.to(device)``), or
+    one rank's ``DistGraph`` from ``prepare_sharded``, whose row arrays are
+    that rank's rows."""
 
     x: np.ndarray
     y: np.ndarray
@@ -48,7 +52,7 @@ class PreparedData:
     train_idx: np.ndarray
     test_idx: np.ndarray
     splits: Optional[analysis.DegreeSplits]
-    graph: Graph  # built from the crafted edge list
+    graph: Union[Graph, DistGraph]  # built from the crafted edge list
 
     @property
     def n_node(self) -> int:
@@ -72,6 +76,24 @@ def apply_special_split(data: NodeData, cfg: Config) -> NodeData:
     return data
 
 
+def _edges_and_splits(data: NodeData, cfg: Config):
+    """(data after the special split, test mask, pipeline edges, crafted
+    edges, degree splits): the chain every ``prepare`` shares."""
+    n = data.x.shape[0]
+    data = apply_special_split(data, cfg)
+    e = standard_pipeline(data.edge_index, n)
+    test_mask = (
+        data.test_mask if data.test_mask is not None else ~data.train_mask
+    )
+    splits = None
+    e_crafted = e
+    if cfg.do_deg_analyze:
+        splits = analysis.degree_splits(n, e, cfg.use_special_split)
+        if cfg.use_special_split:
+            e_crafted, _ = analysis.craft_isolation(e, splits.zero_deg_mask)
+    return data, test_mask, e, e_crafted, splits
+
+
 def prepare(data: NodeData, cfg: Config, *, spmm_dense_threshold: int = 8192
             ) -> PreparedData:
     """Full preprocessing: special split -> edge pipeline -> degree analysis
@@ -79,21 +101,7 @@ def prepare(data: NodeData, cfg: Config, *, spmm_dense_threshold: int = 8192
     ``spmm_dense_threshold`` nodes, ``has_plans`` for larger ones, as the JAX
     package builds its Pallas plans)."""
     n = data.x.shape[0]
-    data = apply_special_split(data, cfg)
-
-    e = standard_pipeline(data.edge_index, n)
-
-    test_mask = (
-        data.test_mask if data.test_mask is not None else ~data.train_mask
-    )
-
-    splits = None
-    e_crafted = e
-    if cfg.do_deg_analyze:
-        splits = analysis.degree_splits(n, e, cfg.use_special_split)
-        if cfg.use_special_split:
-            e_crafted, _ = analysis.craft_isolation(e, splits.zero_deg_mask)
-
+    data, test_mask, e, e_crafted, splits = _edges_and_splits(data, cfg)
     g = build_graph(e_crafted, n, dense_threshold=spmm_dense_threshold,
                     with_plans=n > spmm_dense_threshold)
 
@@ -109,6 +117,46 @@ def prepare(data: NodeData, cfg: Config, *, spmm_dense_threshold: int = 8192
         test_idx=np.where(test_mask)[0],
         splits=splits,
         graph=g,
+    )
+
+
+def prepare_sharded(data: NodeData, cfg: Config, comm: Comm, *,
+                    rb: int = 128) -> PreparedData:
+    """``prepare`` for rank ``comm.shard`` of a row-sharded run (JAX
+    ``data/datasets.py:115-180``): the same chain, the graph a
+    ``parallel/distgraph.py:DistGraph`` (with its edge view under
+    ``cfg.apply_graph_dropout``), and x, y, the masks and the head/tail/iso
+    splits padded to ``n_node_pad`` (zero features, label 0, every mask
+    False) with this rank's rows kept. ``edge_index``, ``train_idx`` and
+    ``test_idx`` stay global host arrays. Padded rows enter no loss, metric
+    or aggregation, but they do enter the norms' statistics, as in the JAX
+    package's sharded run."""
+    n = data.x.shape[0]
+    data, test_mask, e, e_crafted, splits = _edges_and_splits(data, cfg)
+    dg = build_dist_graph(e_crafted, n, comm, rb=rb,
+                          with_edge_view=cfg.apply_graph_dropout)
+
+    def rows(a):
+        return np.ascontiguousarray(dg.local_rows(pad_rows_np(np.asarray(a), dg.n_node_pad)))
+
+    if splits is not None:
+        splits = dataclasses.replace(
+            splits, large_deg_mask=rows(splits.large_deg_mask),
+            small_deg_mask=rows(splits.small_deg_mask),
+            zero_deg_mask=(None if splits.zero_deg_mask is None
+                           else rows(splits.zero_deg_mask)))
+    return PreparedData(
+        x=rows(np.asarray(data.x, np.float32)),
+        y=rows(np.asarray(data.y, np.int64)),
+        edge_index=e_crafted,
+        edge_index_bkup=e,
+        train_mask=rows(data.train_mask),
+        val_mask=None if data.val_mask is None else rows(data.val_mask),
+        test_mask=rows(test_mask),
+        train_idx=np.where(data.train_mask)[0],
+        test_idx=np.where(test_mask)[0],
+        splits=splits,
+        graph=dg,
     )
 
 

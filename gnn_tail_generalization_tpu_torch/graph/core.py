@@ -40,12 +40,18 @@ class RowSchedule:
     ``chunk_bounds[c, 0]`` to ``chunk_bounds[c, 1]``, at most ``threshold``
     consecutive ones. Each chunk's sum is written to its own row of a
     scratch, and a hub row is the sum of its chunks in chunk order, so the
-    order of every sum follows from the schedule alone."""
+    order of every sum follows from the schedule alone.
+
+    ``n_rows`` and ``n_edge`` are those of the ``indptr`` it was built
+    from: the kernel wrappers refuse a CSR of other counts, since a
+    schedule of another CSR would leave that CSR's hub rows unwritten."""
 
     hub_rows: torch.Tensor  # [n_hub] int32
     hub_chunk_ptr: torch.Tensor  # [n_hub + 1] int32
     chunk_bounds: torch.Tensor  # [n_chunks, 2] int32
     threshold: int
+    n_rows: int
+    n_edge: int
 
     @property
     def n_hub(self) -> int:
@@ -80,7 +86,7 @@ def build_schedule(indptr, threshold: int = HUB_THRESHOLD) -> RowSchedule:
     return RowSchedule(
         hub_rows=as_t(hub_rows), hub_chunk_ptr=as_t(chunk_ptr),
         chunk_bounds=as_t(np.stack([start, end], axis=1).reshape(-1, 2)),
-        threshold=threshold)
+        threshold=threshold, n_rows=deg.shape[0], n_edge=int(ip[-1]))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -400,7 +400,7 @@ def train_linkpred(
     ``mesh`` (the sharded trainer) is not ported."""
     if mesh is not None:
         raise NotImplementedError(
-            "sharded link prediction (mesh=) is not ported yet (ROADMAP A12)")
+            "sharded link prediction (mesh=) is not ported yet (ROADMAP A12b)")
     device = resolve_device(device)
     if split_edge is None:
         split_edge, msg_edges = simple_split_edges(edge_index, n_node,

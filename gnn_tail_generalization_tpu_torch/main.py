@@ -13,28 +13,46 @@ Raw dataset files under ``--data_root`` are read where present, else a
 synthetic stand-in with the preset shapes is used. ``--N_exp > 1`` under
 TeacherGNN goes through ``train/multiseed.py``; ``--prog`` resumes a batch
 grid through ``utils/records.py:TensorRex``, and ``--records_path`` /
-``--records_desc`` save each column's curves. Only the multi-device flags
-(``--n_devices > 1``, ``--hier_mesh``) are not ported.
+``--records_desc`` save each column's curves.
+
+``--n_devices=S`` trains the TeacherGNN row-sharded over S ranks
+(``parallel/``): S local processes started by ``parallel/launch.py``, or,
+when ``WORLD_SIZE`` is set, the processes torchrun started. The collectives
+go over NCCL when every rank has a card of its own, over gloo with
+``--dist_transport=gloo`` (host-staged, so several ranks may share one
+card; NCCL refuses two ranks on one card) and on the CPU. Rank 0 prints the
+lines a one-device run prints; seeds run one after another. The other
+``--train_which`` values, link prediction and ``--hier_mesh`` under sharding
+are not ported yet (ROADMAP A12b).
 
 Usage:
   python -m gnn_tail_generalization_tpu_torch.main --dataset=ogbn-arxiv \
       --train_which=SEMLP --whetherHasSE=111 --epochs=3 --device=cuda
   python -m gnn_tail_generalization_tpu_torch.main --exp_mode=I2_GTL \
       --task=linkp --device=cuda
+  python -m gnn_tail_generalization_tpu_torch.main --dataset=ogbn-arxiv \
+      --n_devices=2 --epochs=3 --device=cuda       # add --dist_transport=gloo
+                                                    # on a host with one card
+  torchrun --nproc_per_node=4 -m gnn_tail_generalization_tpu_torch.main \
+      --dataset=ogbn-arxiv --epochs=3
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import os
 from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from .config import Config, apply_arch_configs, build_config
-from .data.datasets import PreparedData, load_dataset, prepare
+from .data.datasets import PreparedData, load_dataset, prepare, prepare_sharded
 from .data.synthetic import fast_powerlaw_graph
+from .parallel.comm import TRANSPORTS, Comm
+from .parallel.launch import spawn
+from .parallel.multihost import initialize_multihost
 from .train.loops import TrainResult, run_experiment
 from .utils.device import resolve_device
 
@@ -65,15 +83,20 @@ def parse_args(argv: Optional[List[str]] = None):
                              "bitwise-identical across block sizes; here "
                              "each epoch is one eager step")
     parser.add_argument("--n_devices", type=int, default=1,
-                        help="only 1: the multi-device layer is not ported "
-                             "yet (ROADMAP A12)")
+                        help="row shards of the TeacherGNN, one local process "
+                             "each (under torchrun: its WORLD_SIZE)")
+    parser.add_argument("--dist_transport", choices=TRANSPORTS, default=None,
+                        help="collectives of a sharded run: nccl (one card a "
+                             "rank; the default on the card) or gloo (staged "
+                             "through the host, so ranks may share a card; "
+                             "the CPU's)")
     parser.add_argument("--hier_mesh", type=str, default=None,
-                        help="not ported yet (ROADMAP A12)")
+                        help="not ported yet (ROADMAP A12b)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device to train on (cuda or cpu)")
     ns = parser.parse_args(argv)
     cli_only = ("data_root", "log_every", "epoch_block", "n_devices",
-                "hier_mesh", "device")
+                "dist_transport", "hier_mesh", "device")
     overrides = {k: v for k, v in vars(ns).items()
                  if v is not None and k not in cli_only}
     for f in dataclasses.fields(Config):  # int-encoded bools back to bool
@@ -82,11 +105,29 @@ def parse_args(argv: Optional[List[str]] = None):
     return overrides, ns
 
 
-def _check_supported(ns) -> None:
-    if ns.n_devices > 1 or ns.hier_mesh:
+def _torchrun_world() -> int:
+    return int(os.environ.get("WORLD_SIZE", "1"))
+
+
+def _sharded(ns) -> bool:
+    return ns.n_devices > 1 or _torchrun_world() > 1
+
+
+def _check_supported(cfg: Config, ns) -> None:
+    if ns.hier_mesh:
+        raise NotImplementedError("--hier_mesh: the two-level (host x card) "
+                                  "layout is not ported yet (ROADMAP A12b)")
+    if not _sharded(ns):
+        return
+    if cfg.train_which != "TeacherGNN" or (cfg.exp_mode == "I2_GTL"
+                                           and cfg.task != "nodeC"):
         raise NotImplementedError(
-            "--n_devices>1 / --hier_mesh: the multi-device layer is not "
-            "ported yet (ROADMAP A12)")
+            f"--n_devices>1 trains the TeacherGNN; sharded {cfg.train_which} "
+            f"(exp_mode={cfg.exp_mode}, task={cfg.task}) is not ported yet "
+            f"(ROADMAP A12b)")
+    if _torchrun_world() > 1 and ns.n_devices not in (1, _torchrun_world()):
+        raise ValueError(f"--n_devices={ns.n_devices} under torchrun's "
+                         f"WORLD_SIZE={_torchrun_world()}")
 
 
 def run_i2gtl(data_root: str, log_every: int, device) -> Dict[str, float]:
@@ -150,46 +191,79 @@ def fitted_to(cfg: Config, data) -> Config:
         num_classes=int(data.y.max()) + 1))
 
 
-def load_prepared(cfg: Config, data_root: str) -> Tuple[Config, PreparedData]:
+def load_prepared(cfg: Config, data_root: str, comm: Optional[Comm] = None,
+                  rb: int = 128) -> Tuple[Config, PreparedData]:
     """The dataset prepared for ``cfg``, and ``cfg`` fitted to the synthetic
-    stand-in's shapes when no raw files were found."""
+    stand-in's shapes when no raw files were found. With ``comm``, rank
+    ``comm.shard``'s part (``prepare_sharded``, shards of ``rb``-row
+    multiples), and only rank 0 prints."""
     data = load_dataset(cfg, data_root)
     if data.name.startswith("synthetic"):
-        print(f"NOTE: no raw dataset files found under {data_root!r}; "
-              f"running on a synthetic stand-in with the preset shapes.")
+        if comm is None or comm.rank == 0:
+            print(f"NOTE: no raw dataset files found under {data_root!r}; "
+                  f"running on a synthetic stand-in with the preset shapes.")
         cfg = fitted_to(cfg, data)
-    return cfg, prepare(data, cfg)
+    if comm is None:
+        return cfg, prepare(data, cfg)
+    return cfg, prepare_sharded(data, cfg, comm, rb=rb)
+
+
+def _full_f32_matmuls() -> None:
+    # f32 matmuls in full f32, as the JAX package's Precision.HIGHEST
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
 
 def main(argv: Optional[List[str]] = None
          ) -> List[Union[TrainResult, Dict[str, float]]]:
     """Runs the experiment; returns one result per seed (a ``TrainResult``,
     or LP's dict of accuracies), or none when ``--prog`` finds its cell
-    done."""
+    done. A sharded run returns rank 0's results."""
     overrides, ns = parse_args(argv)
     cfg = build_config(**overrides)
-    _check_supported(ns)
+    _check_supported(cfg, ns)
+    if _sharded(ns):
+        transport = ns.dist_transport or ("gloo" if ns.device == "cpu" else "nccl")
+        if _torchrun_world() > 1:
+            return sharded_main(initialize_multihost(transport, ns.device), argv)
+        return spawn(sharded_main, ns.n_devices, transport, ns.device, argv)[0]
     device = resolve_device(ns.device)
-    # f32 matmuls in full f32, as the JAX package's Precision.HIGHEST
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    _full_f32_matmuls()
     if cfg.exp_mode == "I2_GTL" and cfg.task != "nodeC":
         return [run_i2gtl(ns.data_root, ns.log_every, device)]
+    return _run(cfg, overrides, ns, device)
 
-    print(f"Configs:\n  dataset={cfg.dataset} train_which={cfg.train_which} "
-          f"type_trick={cfg.type_trick} num_layers={cfg.num_layers} "
-          f"dim_hidden={cfg.dim_hidden}")
+
+def sharded_main(comm: Comm, argv: Optional[List[str]]
+                 ) -> List[Union[TrainResult, Dict[str, float]]]:
+    """One rank of ``main`` under ``--n_devices`` (``parallel/launch.py``
+    starts it; under torchrun ``main`` calls it)."""
+    overrides, ns = parse_args(argv)
+    _full_f32_matmuls()
+    return _run(build_config(**overrides), overrides, ns, comm.device, comm)
+
+
+def _run(cfg: Config, overrides: dict, ns, device, comm: Optional[Comm] = None
+         ) -> List[Union[TrainResult, Dict[str, float]]]:
+    """The experiment on this process, on one device or as one rank
+    (``comm``), where rank 0 prints and records."""
+    say = comm is None or comm.rank == 0
+    if say:
+        print(f"Configs:\n  dataset={cfg.dataset} train_which={cfg.train_which} "
+              f"type_trick={cfg.type_trick} num_layers={cfg.num_layers} "
+              f"dim_hidden={cfg.dim_hidden}")
     rex = cell = None
     if cfg.prog:
         # tensorRex batch-grid resumption (main.py:54-124): skip a done
         # cell, record the final row when the cell completes
         rex, cell = open_rex(cfg)
         if rex.is_done(cell):
-            print(f"rex cell {cell} already done; skipping")
+            if say:
+                print(f"rex cell {cell} already done; skipping")
             return []
-    cfg, pd = load_prepared(cfg, ns.data_root)
+    cfg, pd = load_prepared(cfg, ns.data_root, comm)
 
-    if cfg.train_which == "TeacherGNN" and cfg.N_exp > 1:
+    if cfg.train_which == "TeacherGNN" and cfg.N_exp > 1 and comm is None:
         from .train.multiseed import train_teacher_multiseed
 
         seeds = [cfg.random_seed + s for s in range(cfg.N_exp)]
@@ -210,8 +284,12 @@ def main(argv: Optional[List[str]] = None
                     rex.record(cell, list(res.values()))
                     print(f"rex cell {cell} recorded")
                 return results
-            print(f"seed {seed}: " + " ".join(
-                f"{c}={res.records[-1, i]:.2f}" for i, c in enumerate(res.columns)))
+            if say:
+                print(f"seed {seed}: " + " ".join(
+                    f"{c}={res.records[-1, i]:.2f}" for i, c in enumerate(res.columns)),
+                    flush=True)
+    if not say:
+        return results
 
     stacked = np.stack([r.records for r in results])  # [seeds, epochs, cols]
     cols = results[-1].columns

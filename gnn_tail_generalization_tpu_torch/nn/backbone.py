@@ -22,6 +22,10 @@ connection.
 With ``apply_graph_dropout`` a train-mode forward draws per-layer edge masks
 (nn/graph_dropout.py) from its ``graph_generator`` and runs each conv on its
 masked graph; eval mode keeps the full graph.
+
+On a ``DistGraph`` (``parallel/distgraph.py``) the forward runs on the rank's
+rows: the convs ring, the norms reduce over every rank, and the graph-dropout
+masks are drawn over the canonical edge list, the same on every rank.
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ import torch
 from torch import nn
 
 from ..graph.core import Graph
+from ..parallel.distgraph import comm_of
 from . import graph_dropout as gd
 from .dropout import dropout
 from .gcn import GCNConv
@@ -132,10 +137,11 @@ class TricksCombBackbone(nn.Module):
             graphs[-1] = g_last
         if self.apply_graph_dropout and train:
             masks = gd.per_layer_edge_masks(
-                graph_generator, g, self.type_trick, self.graph_dropout,
-                self.num_layers, self.layerwise_dropout, train)
+                graph_generator, gd.mask_view(g), self.type_trick,
+                self.graph_dropout, self.num_layers, self.layerwise_dropout, train)
             if masks is not None:
-                graphs = [gd.masked_graph(g, m) for m in masks]
+                graphs = [gd.apply_edge_mask(g, m) for m in masks]
+        comm = comm_of(g)
 
         def drop(t):
             return dropout(t, self.dropout, train=train, generator=generator)
@@ -154,7 +160,7 @@ class TricksCombBackbone(nn.Module):
             if se_reg is not None:
                 se_reg_all = se_reg if se_reg_all is None else se_reg_all + se_reg
             if self.norms is not None:
-                x = self.norms[i](x)
+                x = self.norms[i](x, comm)
             if want_les:
                 les.append(x.detach())
             if res or i < self.num_layers - 1:

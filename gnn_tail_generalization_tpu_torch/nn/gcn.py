@@ -9,16 +9,31 @@ aggregate, scale destinations by in_deg^-1/2 AFTER — degrees clamped >= 1.
 E^l in R^{N x d_out} is the learnable structural embedding, added AFTER the
 weight matmul / source scaling, and its Frobenius norm (not squared) is
 returned for the se_reg loss term.
+
+On a ``DistGraph`` the conv runs on the rank's rows: its degrees are the
+rank's rows of the degree vectors, the SE table holds the rank's rows
+(``parallel/distgraph.py:ROW_SHARDED``) and its norm sums the squares over
+the ranks.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 from torch import nn
 
 from ..graph.core import Graph
 from ..ops.spmm import round_bf16, spmm
+from ..parallel.comm import Comm
+from ..parallel.distgraph import DistGraph, comm_of
+
+
+def frobenius_norm(t: torch.Tensor, comm: Optional[Comm] = None) -> torch.Tensor:
+    """||t||_F (not squared); with ``comm``, of the table whose rows the
+    ranks hold between them (one differentiable sum of the squares)."""
+    if comm is None:
+        return torch.linalg.vector_norm(t)
+    return torch.sqrt(comm.all_reduce_sum(t.square().sum()))
 
 
 class GCNConv(nn.Module):
@@ -39,7 +54,7 @@ class GCNConv(nn.Module):
             self.register_parameter("se", None)
         self.bias = nn.Parameter(torch.zeros(out_feats))
 
-    def forward(self, g: Graph, x: torch.Tensor
+    def forward(self, g: Union[Graph, DistGraph], x: torch.Tensor
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         h = x * g.deg_out.clamp(min=1.0).pow(-0.5)[:, None]
         if self.spmm_method == "pallas_bf16":
@@ -52,7 +67,7 @@ class GCNConv(nn.Module):
         se_reg = None
         if self.se is not None:
             h = h + self.se
-            se_reg = torch.linalg.vector_norm(self.se)  # Frobenius, not squared
+            se_reg = frobenius_norm(self.se, comm_of(g))
 
         y = spmm(g, h, self.spmm_method)
         y = y * g.deg_in.clamp(min=1.0).pow(-0.5)[:, None]

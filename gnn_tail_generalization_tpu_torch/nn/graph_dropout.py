@@ -14,17 +14,21 @@ edge, 0 drops it), drawn on the graph's device from the caller's
 ``torch.Generator``. ``masked_graph`` applies one: the weights of both CSRs
 are multiplied, the degrees recounted from the surviving edges, and the
 result has no dense adjacency and no plans, so every SpMM on it runs the f32
-kernel (ops/spmm.py). The sharded (DistGraph) branch of the JAX package's
-``mask_view`` is not ported (ROADMAP A12).
+kernel (ops/spmm.py). On a ``DistGraph`` the masks are drawn over its
+canonical edge list (``mask_view``), every rank drawing the same mask from a
+generator seeded alike, and ``apply_edge_mask`` scales every bucket's weights
+through ``parallel/distgraph.py:masked_dist_graph``; the buckets keep their
+kernel, so ``pallas_bf16`` stays bf16 there, as the JAX package's plans do.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import List, Optional, Union
 
 import torch
 
 from ..graph.core import Graph, edge_rows
+from ..parallel.distgraph import DistGraph, EdgeView, global_edge_view, masked_dist_graph
 
 
 def _senders_receivers(g: Graph):
@@ -138,3 +142,15 @@ def masked_graph(g: Graph, mask: torch.Tensor) -> Graph:
             0, edge_rows(g.indptr_t, g.n_edge), (w_t != 0).float())
     return dataclasses.replace(g, weight=w, weight_t=w_t, deg_in=deg_in,
                                deg_out=deg_out, dense_adj=None, has_plans=False)
+
+
+def mask_view(g: Union[Graph, DistGraph]) -> Union[Graph, EdgeView]:
+    """The edge list the mask samplers draw over: the graph itself on one
+    device, the canonical global edge list of a ``DistGraph``."""
+    return g if isinstance(g, Graph) else global_edge_view(g)
+
+
+def apply_edge_mask(g: Union[Graph, DistGraph], mask: torch.Tensor
+                    ) -> Union[Graph, DistGraph]:
+    """``g`` with the edge mask drawn over ``mask_view(g)`` applied."""
+    return masked_graph(g, mask) if isinstance(g, Graph) else masked_dist_graph(g, mask)

@@ -15,14 +15,25 @@ batch variance is E[x^2] - E[x]^2 (ddof 0) in the normalization AND in the
 running variance, where torch's running variance takes the unbiased one
 (N / (N - 1) larger); and its ``decay`` is flax's momentum (the weight of the
 old running value), so flax 0.9 is torch's momentum 0.1.
+
+Sharded (``comm`` given, the rows split over the ranks of a ``DistGraph``):
+every mean over the node axis (pair and mean norm, the batch statistics of
+``BatchNorm`` and ``GroupNorm``) is a local sum, summed over the ranks by a
+differentiable all-reduce and divided by the global row count, so the
+statistics and the running statistics are the same on every rank. The padded
+rows count: under GSPMD the JAX package's sharded run reduces over all
+``n_node_pad`` rows (``train/loops.py:159-160`` sets ``N_nodes`` to it), and
+the port matches that sharded function, not the unpadded one-device run.
+``node_norm`` is per row and needs nothing.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
 import torch
 from torch import nn
 
+from ..parallel.comm import Comm
 from .mlp import dense_layer
 
 NORM_NAMES = ("BatchNorm", "PairNorm", "NodeNorm", "MeanNorm", "GroupNorm",
@@ -30,14 +41,24 @@ NORM_NAMES = ("BatchNorm", "PairNorm", "NodeNorm", "MeanNorm", "GroupNorm",
 _EPS = 1e-5
 
 
-def pair_norm(x: torch.Tensor) -> torch.Tensor:
-    x = x - x.mean(dim=0)
-    rownorm_mean = torch.sqrt(1e-6 + (x**2).sum(dim=1).mean())
-    return x / rownorm_mean
+def row_means(comm: Optional[Comm], *ts: torch.Tensor) -> List[torch.Tensor]:
+    """The mean over the rows (dim 0) of each of ``ts``; with ``comm``,
+    over the rows of every rank (one all-reduce for all of them)."""
+    if comm is None:
+        return [t.mean(dim=0) for t in ts]
+    sums = comm.all_reduce_sum(torch.stack([t.sum(dim=0) for t in ts]))
+    return list(sums / (ts[0].shape[0] * comm.world_size))
 
 
-def mean_norm(x: torch.Tensor) -> torch.Tensor:
-    return x - x.mean(dim=0)
+def pair_norm(x: torch.Tensor, comm: Optional[Comm] = None) -> torch.Tensor:
+    (mean,) = row_means(comm, x)
+    x = x - mean
+    (sq,) = row_means(comm, (x**2).sum(dim=1))
+    return x / torch.sqrt(1e-6 + sq)
+
+
+def mean_norm(x: torch.Tensor, comm: Optional[Comm] = None) -> torch.Tensor:
+    return x - row_means(comm, x)[0]
 
 
 def node_norm(x: torch.Tensor, node_norm_type: str = "n") -> torch.Tensor:
@@ -73,10 +94,10 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(dim))
         self.register_buffer("running_var", torch.ones(dim))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, comm: Optional[Comm] = None) -> torch.Tensor:
         if self.training:
-            mean = x.mean(dim=0)
-            var = torch.clamp((x * x).mean(dim=0) - mean * mean, min=0.0)
+            mean, sq = row_means(comm, x, x * x)
+            var = torch.clamp(sq - mean * mean, min=0.0)
             with torch.no_grad():
                 for r, batch in ((self.running_mean, mean), (self.running_var, var)):
                     r.mul_(self.decay).add_(batch, alpha=1.0 - self.decay)
@@ -99,14 +120,14 @@ class GroupNorm(nn.Module):
         self.score = (dense_layer(dim, num_groups, generator)
                       if num_groups > 1 else None)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, comm: Optional[Comm] = None) -> torch.Tensor:
         if self.score is None:
-            x_temp = self.bn(x)
+            x_temp = self.bn(x, comm)
         else:
             score = torch.softmax(self.score(x), dim=1)  # [N, G]
             x_temp = (score[:, :, None] * x[:, None, :]).reshape(
                 x.shape[0], self.num_groups * self.dim)
-            x_temp = self.bn(x_temp).reshape(
+            x_temp = self.bn(x_temp, comm).reshape(
                 x.shape[0], self.num_groups, self.dim).sum(dim=1)
         return x + x_temp * self.skip_weight
 
@@ -162,20 +183,20 @@ class NormLayer(nn.Module):
         self.group = (GroupNorm(dim, num_groups, skip_weight, generator)
                       if kind in ("GroupNorm", "CombNorm") else None)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, comm: Optional[Comm] = None) -> torch.Tensor:
         k = self.kind
         if k == "BatchNorm":
-            return self.bn(x)
+            return self.bn(x, comm)
         if k == "PairNorm":
-            return pair_norm(x)
+            return pair_norm(x, comm)
         if k == "NodeNorm":
             return node_norm(x, self.node_norm_type)
         if k == "MeanNorm":
-            return mean_norm(x)
+            return mean_norm(x, comm)
         if k == "GroupNorm":
-            return self.group(x)
+            return self.group(x, comm)
         if k == "CombNorm":
-            return node_norm(self.group(x), self.node_norm_type)
+            return node_norm(self.group(x, comm), self.node_norm_type)
         return x
 
 

@@ -18,15 +18,19 @@ round to bf16. On a CPU tensor the kernel paths run the kernels' plain
 versions.
 
 The backward is the same aggregation on the transposed CSR (dx = A^T dy);
-the graph gets no gradient. ``spmm_edge_grad`` is the variant whose edge
+the graph gets no gradient. A ``DistGraph`` (one rank's row shard) goes to
+the ring SpMM, as in the JAX package (``ops/spmm.py:68-77``). ``spmm_edge_grad`` is the variant whose edge
 weights train (their gradient an SDDMM), and ``spmm_normalized`` the
 degree-normalized aggregation.
 """
 from __future__ import annotations
 
+from typing import Union
+
 import torch
 
 from ..graph.core import Graph, edge_rows
+from ..parallel.distgraph import DistGraph, dist_spmm
 from . import spmm_kernels
 from .sddmm import edge_dot
 
@@ -72,12 +76,16 @@ class _SpMM(torch.autograd.Function):
         return dx.to(ctx.x_dtype), None, None
 
 
-def spmm(g: Graph, x: torch.Tensor, method: str = "auto") -> torch.Tensor:
+def spmm(g: Union[Graph, DistGraph], x: torch.Tensor, method: str = "auto"
+         ) -> torch.Tensor:
     """y = A @ x with A[dst, src] = w_e. ``x``: [N, d] f32, or bf16 (the
     link-prediction GCN's bf16 Dense output under ``pallas_bf16``) ->
     ``y``: [N, d] f32; the gradient of ``x`` takes ``x``'s dtype.
     Raises unless ``x`` has one row per node of ``g``: the CUDA kernels read
-    ``x[indices_e]`` unchecked."""
+    ``x[indices_e]`` unchecked. On a ``DistGraph`` (one rank's shard) this
+    is the ring, ``parallel/distgraph.py:dist_spmm``, on the rank's rows."""
+    if isinstance(g, DistGraph):
+        return dist_spmm(g, x, method)
     if x.dim() != 2 or x.shape[0] != g.n_node:
         raise ValueError(f"x must be [{g.n_node}, d] for a graph of "
                          f"{g.n_node} nodes, got {tuple(x.shape)}")

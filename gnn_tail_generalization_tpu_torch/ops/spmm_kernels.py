@@ -15,9 +15,11 @@ Both kernels live in ``csrc/spmm_csr.cu``; that file's header says what bounds
 them on the card and how the design answers it. A CUDA call runs up to three
 kernels (light rows; hub-row chunks and their reduction) on a
 ``graph.core.RowSchedule``, which ``ops/spmm.py`` passes from the graph; a
-direct call without one builds it from ``indptr`` (a host copy). On a CPU
-tensor each wrapper runs the plain version (``spmm_csr_plain``); on a CUDA
-tensor it launches its kernels or raises. ``LAUNCHES`` counts one per
+direct call without one builds it from ``indptr`` (a host copy). A schedule
+passed with a CSR of other row or edge counts than it was built for raises
+``ValueError`` on either route. On a CPU tensor each wrapper runs the plain
+version (``spmm_csr_plain``); on a CUDA tensor it launches its kernels or
+raises. ``LAUNCHES`` counts one per
 wrapper call that launched, and calls of the plain version, so a run can
 show which one it went through.
 """
@@ -108,11 +110,18 @@ def lane_layout(d: int, x: torch.Tensor, widths) -> tuple:
     return vec, nv, min(32, 1 << (lanes - 1).bit_length())
 
 
-def _check_schedule(s: RowSchedule, n_rows: int, device) -> None:
+def _check_schedule(s: RowSchedule, n_rows: int, n_edge: int, device) -> None:
+    """Raises unless ``s`` fits a CSR of ``n_rows`` rows and ``n_edge`` edges
+    on ``device``: a schedule built from another CSR's ``indptr`` would leave
+    this one's hub rows unwritten (the light kernel skips them)."""
     if s.hub_chunk_ptr.shape[0] != s.n_hub + 1 or s.n_hub > n_rows:
         raise ValueError(f"schedule of {s.n_hub} hub rows and "
                          f"{s.hub_chunk_ptr.shape[0]} chunk pointers for a CSR "
                          f"of {n_rows} rows")
+    if (s.n_rows, s.n_edge) != (n_rows, n_edge):
+        raise ValueError(f"schedule built for a CSR of {s.n_rows} rows and "
+                         f"{s.n_edge} edges, passed with one of {n_rows} rows "
+                         f"and {n_edge} edges")
     for name in ("hub_rows", "hub_chunk_ptr", "chunk_bounds"):
         t = getattr(s, name)
         if t.device != device or t.dtype != torch.int32 or not t.is_contiguous():
@@ -128,7 +137,7 @@ def _launch(name: str, indptr, indices, weight, x, widths,
     n_rows, d = indptr.numel() - 1, x.shape[1]
     if schedule is None:
         schedule = build_schedule(indptr.cpu().numpy()).to(x.device)
-    _check_schedule(schedule, n_rows, x.device)
+    _check_schedule(schedule, n_rows, indices.numel(), x.device)
     y = torch.empty(n_rows, d, dtype=torch.float32, device=x.device)
     partial = torch.empty(schedule.n_chunks, d, dtype=torch.float32, device=x.device)
     vec, nv, group = lane_layout(d, x, widths)
@@ -146,6 +155,15 @@ def _launch(name: str, indptr, indices, weight, x, widths,
     return y
 
 
+def _plain(indptr, indices, weight, x, schedule: Optional[RowSchedule],
+           bf16: bool) -> torch.Tensor:
+    """The CPU route: the plain version, after the same schedule check as
+    the CUDA route, so that a schedule of another CSR is refused here too."""
+    if schedule is not None:
+        _check_schedule(schedule, indptr.numel() - 1, indices.numel(), x.device)
+    return spmm_csr_plain(indptr, indices, weight, x, bf16=bf16)
+
+
 def _on_cuda(x: torch.Tensor) -> bool:
     if x.device.type == "cpu":
         return False
@@ -160,7 +178,7 @@ def spmm_csr_f32(indptr: torch.Tensor, indices: torch.Tensor,
     """f32 CSR SpMM: the CUDA kernels on a CUDA tensor, the plain version on
     a CPU one. ``schedule``: the CSR's ``RowSchedule`` on x's device."""
     if not _on_cuda(x):
-        return spmm_csr_plain(indptr, indices, weight, x)
+        return _plain(indptr, indices, weight, x, schedule, bf16=False)
     _check(indptr, indices, weight, x)
     if x.dtype != torch.float32 or weight.dtype != torch.float32:
         raise TypeError(f"spmm_csr_f32 takes float32 x and weight, got "
@@ -174,7 +192,7 @@ def spmm_csr_bf16(indptr: torch.Tensor, indices: torch.Tensor,
     """bf16-operand CSR SpMM with f32 accumulation and f32 output: the CUDA
     kernels on a CUDA tensor, the plain version on a CPU one."""
     if not _on_cuda(x):
-        return spmm_csr_plain(indptr, indices, weight, x, bf16=True)
+        return _plain(indptr, indices, weight, x, schedule, bf16=True)
     _check(indptr, indices, weight, x)
     if not (x.is_floating_point() and weight.is_floating_point()):
         raise TypeError(f"spmm_csr_bf16 takes floating x and weight, got "

@@ -18,7 +18,7 @@ Two points keep it equal to the JAX op:
   selected. The callers (``main``, ``chip_smoke.py``) turn TF32 off.
 
 ``make_dist_latent_replace`` (the row-sharded table) comes with the
-multi-device layer (ROADMAP A12).
+sharded students (ROADMAP A12b).
 """
 from __future__ import annotations
 

@@ -20,7 +20,7 @@ Convention: torch_sparse ``SparseTensor(row=e0, col=e1) @ x`` sums over
 columns, out[e0] += x[e1], so the Graphs here take receivers = e[0] and
 senders = e[1]. DA and AD are not symmetric: a flipped edge list is a wrong
 answer, not a transposed one. The sharded ``gen_normalized_dist_adj`` is
-not ported (ROADMAP A12).
+not ported yet (ROADMAP A12b).
 """
 from __future__ import annotations
 

@@ -16,13 +16,13 @@ reference's ``trainer_node_classification.py:435-563`` and
 The loss is split into ``draw_pairs`` (the random part, from a
 ``torch.Generator`` on the device) and ``score_pairs`` (a function of the
 embeddings and the pairs), so fixed pairs can be scored. The random streams
-differ from ``jax.random``'s by design. The JAX package's sharded branch
-(``dist_take_rows``) comes with the multi-device layer.
+differ from ``jax.random``'s by design. On a ``DistGraph`` the pair rows are
+gathered across the ranks (``score_pairs_sharded``).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,6 +32,7 @@ from ..config import Config
 from ..data.datasets import PreparedData
 from ..linkpred import sampling
 from ..ops.sddmm import edge_dot
+from ..parallel.distgraph import DistGraph, dist_take_rows
 
 Pairs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -54,7 +55,9 @@ class EdgewisePlan:
 def build_edgewise_plan(cfg: Config, data: PreparedData) -> EdgewisePlan:
     e = data.edge_index
     n_node = data.graph.n_node
-    tm = np.asarray(data.train_mask)[:n_node]
+    # from the host train_idx: a sharded PreparedData holds one rank's rows
+    tm = np.zeros(n_node, bool)
+    tm[np.asarray(data.train_idx)] = True
     both_train = tm[e[0]] & tm[e[1]]
     both_test = (~tm)[e[0]] & (~tm)[e[1]]
     return EdgewisePlan(
@@ -152,13 +155,30 @@ def score_pairs(h: torch.Tensor, pairs: Pairs):
                           edge_dot(h[neg_src], h[neg_dst]))
 
 
-def make_edgewise_loss_fn(plan: EdgewisePlan, device) -> Callable:
+def score_pairs_sharded(g: DistGraph, h: torch.Tensor, pairs: Pairs):
+    """``score_pairs`` on a row-sharded ``h`` (one rank's rows of a
+    ``DistGraph``): the 2(p + n) pair rows are gathered by one
+    ``dist_take_rows``, so every rank scores the same pairs whole
+    (``edgewise.py:171-178``)."""
+    p, n = pairs[0].shape[0], pairs[2].shape[0]
+    rows = dist_take_rows(g, h, torch.cat(pairs))
+    return linkp_loss_eva(edge_dot(rows[:p], rows[p: 2 * p]),
+                          edge_dot(rows[2 * p: 2 * p + n], rows[2 * p + n:]))
+
+
+def make_edgewise_loss_fn(plan: EdgewisePlan, device,
+                          dist_graph: Optional[DistGraph] = None) -> Callable:
     """f(h, generator, mode) -> (loss, MRR) on ``device``: pairs drawn by
     ``draw_pairs`` and scored on ``h``, the full (unmasked) commonEmb
-    (trainer:418)."""
+    (trainer:418). With ``dist_graph`` ``h`` is a rank's rows: every rank
+    draws the same pairs (generators seeded alike) and scores them through
+    ``score_pairs_sharded``."""
     ew = edgewise_consts(plan, device)
 
     def f(h: torch.Tensor, generator: torch.Generator, mode: str):
-        return score_pairs(h, draw_pairs(plan, ew, generator, mode))
+        pairs = draw_pairs(plan, ew, generator, mode)
+        if dist_graph is not None:
+            return score_pairs_sharded(dist_graph, h, pairs)
+        return score_pairs(h, pairs)
 
     return f

@@ -42,6 +42,9 @@ from ..graph.core import Graph, add_self_loops, loss_masked_view, remove_self_lo
 from ..models.semlp import GraphMLP, SEMLPPart1, SEMLPPart2, neighbor_contrastive_loss
 from ..models.teacher import TeacherGNN
 from ..nn.norms import norm_applies
+from ..parallel.comm import Comm
+from ..parallel.distgraph import (DistGraph, build_dist_graph, is_row_sharded,
+                                  shard_state_dict)
 from ..propagation import correlation as corr
 from ..utils.device import resolve_device
 from .evalutil import headtail_accuracies, masked_accuracy
@@ -67,37 +70,52 @@ class TrainResult:
         return float(self.records[:, self.columns.index(col)].max())
 
 
-def _nll_masked(logits: torch.Tensor, y: torch.Tensor,
-                mask: torch.Tensor) -> torch.Tensor:
+def _nll_masked(logits: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
+                n_masked: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The NLL summed over the masked rows, over ``n_masked`` (default: the
+    mask's count here; on a rank's rows, the count over every rank)."""
     picked = torch.log_softmax(logits, dim=1).gather(1, y[:, None])[:, 0]
     # where (not *0) so masked-out rows can hold non-finite values
     picked = torch.where(mask, picked, torch.zeros_like(picked))
-    return -picked.sum() / mask.float().sum().clamp(min=1.0)
+    if n_masked is None:
+        n_masked = mask.float().sum()
+    return -picked.sum() / n_masked.clamp(min=1.0)
 
 
 def teacher_loss(cfg: Config, classi: torch.Tensor,
                  se_reg_all: Optional[torch.Tensor], y: torch.Tensor,
                  train_mask: torch.Tensor,
-                 l_struct: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 l_struct: Optional[torch.Tensor] = None, *,
+                 n_train: Optional[torch.Tensor] = None,
+                 n_shards: int = 1) -> torch.Tensor:
     """The teacher's train loss: the masked NLL (nodewise component), the SE
     regulariser, and the edgewise loss ``l_struct`` where the config has
-    that component (exp_mode=I2_GTL)."""
+    that component (exp_mode=I2_GTL).
+
+    On one rank's rows of a sharded run, the rank's part, the parts summing
+    to the loss over the ranks: the NLL of the rank's rows over the global
+    train count ``n_train``, and each term that every rank computes whole
+    (the SE regulariser, the edgewise loss) divided by ``n_shards``, since
+    the replicated gradients are summed over the ranks."""
     loss = torch.zeros((), device=classi.device)
     if cfg.has_loss_component_nodewise:
-        loss = _nll_masked(classi, y, train_mask) * cfg.TeacherGNN.lossa_semantic
+        loss = _nll_masked(classi, y, train_mask, n_train) * cfg.TeacherGNN.lossa_semantic
     if se_reg_all is not None:
-        loss = loss + cfg.se_reg * se_reg_all
+        loss = loss + cfg.se_reg * se_reg_all / n_shards
     if l_struct is not None:
-        loss = loss + l_struct * cfg.TeacherGNN.lossa_structure
+        loss = loss + l_struct * cfg.TeacherGNN.lossa_structure / n_shards
     return loss
 
 
-def final_agg_view(cfg: Config, data: PreparedData) -> Optional[Graph]:
+def final_agg_view(cfg: Config, data: PreparedData
+                   ) -> Optional[Union[Graph, DistGraph]]:
     """The loss-masked final-layer graph (Config.optimize_final_layer_agg)
     or None. The single gate for the optimization: valid only when the
     train-mode last-conv output reaches the loss exclusively through the
     row-masked NLL — no edgewise loss, no cross-row norm trick, no graph
-    dropout, and a real nodewise loss."""
+    dropout, and a real nodewise loss. On a ``DistGraph`` the view is a
+    second ``DistGraph`` over the train-dst edges that keeps the full
+    graph's degree vectors (JAX ``loops.py:118-129``)."""
     if not (cfg.optimize_final_layer_agg
             and cfg.has_loss_component_nodewise
             and not cfg.has_loss_component_edgewise
@@ -105,14 +123,60 @@ def final_agg_view(cfg: Config, data: PreparedData) -> Optional[Graph]:
         return None
     if norm_applies(cfg.type_trick):
         return None
-    m = np.zeros(data.graph.n_node, bool)
+    g, e = data.graph, data.edge_index
+    m = np.zeros(g.n_node, bool)
     m[np.asarray(data.train_idx)] = True
-    return loss_masked_view(data.graph, data.edge_index, m)
+    if isinstance(g, DistGraph):
+        sub = build_dist_graph(e[:, m[e[1]]], g.n_node, g.comm, rb=g.rb)
+        return dataclasses.replace(sub, deg_in=g.deg_in, deg_out=g.deg_out)
+    return loss_masked_view(g, e, m)
 
 
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _teacher_model(cfg: Config, seed: int, init_state: Optional[Mapping[str, Any]],
+                   g: Optional[DistGraph]) -> TeacherGNN:
+    """The teacher, from ``seed`` or ``init_state``. On a rank of a
+    ``DistGraph`` its row-sharded parameters hold the rank's rows
+    (``parallel/distgraph.py:ROW_SHARDED``): the whole model is drawn from
+    ``seed`` on every rank, with the SE tables over all ``n_node_pad`` rows
+    and their padding rows zeroed (JAX ``loops.py:216-229``), and the rank
+    keeps its rows, so the start does not depend on the number of shards;
+    ``init_state`` is then the rank's state (``utils/convert.py``)."""
+    gen = torch.Generator().manual_seed(seed)
+    if g is None:
+        model = TeacherGNN(cfg, generator=gen)
+        if init_state is not None:
+            model.load_state_dict({k: torch.as_tensor(v) for k, v in init_state.items()})
+        return model
+    if init_state is None:
+        full = TeacherGNN(dataclasses.replace(cfg, N_nodes=g.n_node_pad),
+                          generator=gen).state_dict()
+        for name, t in full.items():
+            if name.rsplit(".", 1)[-1] == "se":
+                t[g.n_node:] = 0.0
+        init_state = shard_state_dict(full, g.comm.shard, g.n_shards)
+    with torch.device("meta"):
+        model = TeacherGNN(dataclasses.replace(cfg, N_nodes=g.rows_per_shard))
+    model.load_state_dict({k: torch.as_tensor(v).clone() for k, v in init_state.items()},
+                          assign=True)
+    return model
+
+
+def sum_replicated_grads(model: torch.nn.Module, comm: Comm) -> None:
+    """Sums the gradients of the replicated parameters over the ranks, in
+    one all-reduce of their concatenation; the row-sharded ones stay the
+    rank's own. Adam then steps alike on every rank."""
+    grads = [p.grad for name, p in model.named_parameters()
+             if p.grad is not None and not is_row_sharded(name)]
+    if not grads:
+        return
+    flat = comm.all_reduce_sum_(torch.cat([t.reshape(-1) for t in grads]))
+    for t, part in zip(grads, flat.split([t.numel() for t in grads])):
+        t.copy_(part.view_as(t))
 
 
 def train_teacher(
@@ -140,26 +204,47 @@ def train_teacher(
     MRR columns ``linkp_train`` (the train-mode forward's) and
     ``linkp_test`` (the eval forward's). ``save_dir``: the final state is
     written to ``<save_dir>/teacherGNN.pt``, and when training for SEMLP
-    the best one to ``best-teacherGNN.pt`` (train/checkpoint.py)."""
+    the best one to ``best-teacherGNN.pt`` (train/checkpoint.py).
+
+    Sharded: ``data`` from ``data/datasets.py:prepare_sharded`` holds one
+    rank's rows and its ``DistGraph``; every rank calls this with the same
+    arguments (``device`` of the rank's type; it runs on the rank's device).
+    The loss is the rank's part (``teacher_loss``), the replicated gradients
+    are summed over the ranks before Adam (``sum_replicated_grads``), the
+    records are global and the same on every rank, rank 0 logs, dropout
+    draws from a stream of each rank's own, and graph-dropout masks and
+    edgewise pairs from streams seeded alike on every rank. ``init_state``
+    is then the rank's state; ``save_dir`` is not ported there (A12b)."""
     epochs = cfg.epochs if epochs is None else epochs
     device = resolve_device(device)
+    dist_g = data.graph if isinstance(data.graph, DistGraph) else None
+    comm = None if dist_g is None else dist_g.comm
+    if comm is not None:
+        if device.type != comm.device.type:
+            raise ValueError(f"device {device} for a rank on {comm.device}")
+        device = comm.device
+        if save_dir:
+            raise NotImplementedError("save_dir under sharding: the sharded "
+                                      "checkpoint pair is not ported yet "
+                                      "(ROADMAP A12b)")
 
-    model = TeacherGNN(cfg, generator=torch.Generator().manual_seed(seed))
-    if init_state is not None:
-        model.load_state_dict({k: torch.as_tensor(v) for k, v in init_state.items()})
-    model.to(device)
-    drop_gen = torch.Generator(device=device).manual_seed(seed)
+    model = _teacher_model(cfg, seed, init_state, dist_g).to(device)
+    # dropout masks differ between the ranks' rows, as one stream over all
+    # rows would make them
+    drop_gen = torch.Generator(device=device).manual_seed(
+        seed + (comm.shard << 32 if comm is not None else 0))
     # graph-dropout masks get a stream of their own, drawn in train mode only
     graph_gen = torch.Generator(device=device).manual_seed(seed + 4)
     opt = make_optimizer(cfg, model.parameters())
+    g = data.graph.to(device)
     ew_fn = None
     if cfg.has_loss_component_edgewise:
         from .edgewise import build_edgewise_plan, make_edgewise_loss_fn
 
-        ew_fn = make_edgewise_loss_fn(build_edgewise_plan(cfg, data), device)
+        ew_fn = make_edgewise_loss_fn(build_edgewise_plan(cfg, data), device,
+                                      dist_graph=None if comm is None else g)
         pair_gen = torch.Generator(device=device).manual_seed(seed + 5)
 
-    g = data.graph.to(device)
     g_last = final_agg_view(cfg, data)
     if g_last is not None:
         g_last = g_last.to(device)
@@ -185,6 +270,11 @@ def train_teacher(
     keep_best = "SEMLP" in cfg.train_which
     acc_i = cols.index("acc_test")
     best_acc, best_state = -1.0, None
+    n_shards, n_train = 1, None
+    if comm is not None:
+        n_shards = comm.world_size
+        n_train = comm.all_reduce_sum_(train_mask.float().sum())
+    log_here = log_every and (comm is None or comm.rank == 0)
 
     for epoch in range(epochs):
         _sync(device)
@@ -197,8 +287,11 @@ def train_teacher(
         if ew_fn is not None:
             # the full (unmasked) embedding (trainer:418)
             l_struct, linkp_train = ew_fn(common, pair_gen, "train")
-        loss = teacher_loss(cfg, classi, se_reg_all, y, train_mask, l_struct)
+        loss = teacher_loss(cfg, classi, se_reg_all, y, train_mask, l_struct,
+                            n_train=n_train, n_shards=n_shards)
         loss.backward()
+        if comm is not None:
+            sum_replicated_grads(model, comm)
         opt.step()
         _sync(device)
         step_ms.append((time.perf_counter() - t0) * 1e3)
@@ -207,14 +300,17 @@ def train_teacher(
         model.eval()
         with torch.no_grad():
             common, classi, _, _ = model(g, x)
+            loss_train = loss.detach().clone()
+            if comm is not None:
+                comm.all_reduce_sum_(loss_train)
             metrics = {
-                "loss_train": loss.detach(),
-                "acc_train": masked_accuracy(classi, y, train_mask) * 100.0,
-                "acc_test": masked_accuracy(classi, y, test_mask) * 100.0,
+                "loss_train": loss_train,
+                "acc_train": masked_accuracy(classi, y, train_mask, comm) * 100.0,
+                "acc_test": masked_accuracy(classi, y, test_mask, comm) * 100.0,
             }
             if want_ht:
                 metrics.update(headtail_accuracies(classi, y, train_mask,
-                                                   large, small, zero))
+                                                   large, small, zero, comm))
             if ew_fn is not None:
                 metrics["linkp_train"] = linkp_train.detach()
                 metrics["linkp_test"] = ew_fn(common, pair_gen, "test")[1]
@@ -226,9 +322,9 @@ def train_teacher(
             if keep_best:  # state_dict() holds live tensors that Adam updates
                 best_state = {k: v.detach().clone()
                               for k, v in model.state_dict().items()}
-        if log_every and epoch % log_every == 0:
+        if log_here and epoch % log_every == 0:
             print(f"Ep{epoch:03d} " + " ".join(
-                f"{c}={records[epoch, i]:.2f}" for i, c in enumerate(cols)))
+                f"{c}={records[epoch, i]:.2f}" for i, c in enumerate(cols)), flush=True)
 
     final = {k: v.detach() for k, v in model.state_dict().items()}
     if save_dir:

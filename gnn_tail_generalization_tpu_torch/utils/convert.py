@@ -42,6 +42,7 @@ from ..nn.gcn import GCNConv
 from ..nn.mlp import MLP, BlockResMLP
 from ..nn.norms import BatchNorm, GroupNorm, NormLayer
 from ..nn.residual import DenseConnection
+from ..parallel.distgraph import shard_state_dict
 from ..propagation.cs import CSLinear, CSMLp
 
 # leaf name -> (port parameter name, transpose?)
@@ -170,15 +171,22 @@ def state_dict_from_flax(flat: Mapping[str, np.ndarray], module: nn.Module
 
 
 def params_from_jax(flat: Mapping[str, np.ndarray], cfg: Config,
-                    batch_stats: Optional[Mapping[str, np.ndarray]] = None
-                    ) -> Dict[str, torch.Tensor]:
+                    batch_stats: Optional[Mapping[str, np.ndarray]] = None, *,
+                    shard: int = 0, n_shards: int = 1) -> Dict[str, torch.Tensor]:
     """The state_dict of ``TeacherGNN(cfg)`` holding the flax parameters and,
     where the model has batch norms, the flax ``batch_stats`` (flat, as
-    ``flat``) in their running-statistics buffers."""
+    ``flat``) in their running-statistics buffers.
+
+    ``n_shards`` > 1: the parameters of the JAX package's sharded run
+    (``cfg.N_nodes`` its ``n_node_pad``) as rank ``shard``'s state: rows
+    ``shard * R`` to ``(shard + 1) * R`` of the SE tables (and learnable
+    inputs), everything else whole (``parallel/distgraph.py:
+    shard_state_dict``)."""
     flat = {**flat, **(batch_stats or {})}
     with torch.device("meta"):  # names and shapes only, no memory
         model = TeacherGNN(cfg)
-    return state_dict_from_flax(flat, model)
+    state = state_dict_from_flax(flat, model)
+    return state if n_shards == 1 else shard_state_dict(state, shard, n_shards)
 
 
 def linkpred_params_from_jax(flat: Mapping[str, np.ndarray],

@@ -404,6 +404,16 @@ for alg in ("DGI", "EGI", "VGAE"):
     embs = gen_baseline_embs(e60, 60, alg, epochs=2, hidden_dim=8, device="cpu")
     assert embs.shape[0] == 60 and np.isfinite(embs).all(), alg
 assert np.isfinite(egi_bound(e60, 60, fast_powerlaw_graph(50, 200, 1), 50, n_pairs=4))
+import gnn_tail_generalization_tpu_torch.parallel.launch
+import gnn_tail_generalization_tpu_torch.parallel.multihost
+from gnn_tail_generalization_tpu_torch.parallel.comm import Comm
+from gnn_tail_generalization_tpu_torch.parallel.distgraph import (
+    build_dist_graph, comm_volume_stats, dist_spmm, masked_dist_graph)
+dg = build_dist_graph(e60, 60, Comm(0, 1, "cpu", "gloo"), rb=8, with_edge_view=True)
+h = torch.randn(dg.rows_per_shard, 4)
+assert torch.equal(dist_spmm(masked_dist_graph(dg, torch.ones(dg.edge_view.n_edge)), h),
+                   dist_spmm(dg, h))
+assert comm_volume_stats(e60, 60, 2, rb=8)["n_node_pad"] == 64
 assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 print("NO_JAX_OK")
 """

@@ -203,15 +203,37 @@ def test_wrapper_checks_the_schedule(rng):
     _, _, g = hub_graph(rng)
     other = tcore.build_schedule(np.array([0, 100, 200]))
     with pytest.raises(ValueError, match="schedule of 2 hub rows"):
-        K._check_schedule(other, 1, g.indptr.device)
+        K._check_schedule(other, 1, 200, g.indptr.device)
     with pytest.raises(ValueError, match="contiguous int32"):
-        K._check_schedule(g.schedule.to("meta"), g.n_node, g.indptr.device)
-    K._check_schedule(g.schedule, g.n_node, g.indptr.device)
+        K._check_schedule(g.schedule.to("meta"), g.n_node, g.n_edge, g.indptr.device)
+    K._check_schedule(g.schedule, g.n_node, g.n_edge, g.indptr.device)
     # a CPU tensor runs the plain version whatever the schedule
     x = torch.from_numpy(rng.normal(size=(700, 8)).astype(np.float32))
     torch.testing.assert_close(
         K.spmm_csr_f32(g.indptr, g.indices, g.weight, x, g.schedule),
         K.spmm_csr_plain(g.indptr, g.indices, g.weight, x), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("wrapper", ["spmm_csr_f32", "spmm_csr_bf16"])
+def test_wrapper_refuses_the_schedule_of_another_csr(rng, wrapper):
+    """A schedule records the row and edge counts of the CSR it was built
+    from, and both routes of a wrapper refuse it with a CSR of other counts:
+    the CUDA kernels would leave that CSR's hub rows unwritten. Two CSRs of
+    one row count (a graph's forward CSR and a subgraph's), as a ring's
+    buckets are."""
+    ei, w, g = hub_graph(rng)
+    sub = tcore.build_graph(ei[:, ::2], 700, w[::2], with_dense=False)
+    assert sub.n_node == g.n_node and sub.n_edge != g.n_edge
+    assert sub.schedule.n_rows == g.n_node and sub.schedule.n_edge == sub.n_edge
+    x = torch.from_numpy(rng.normal(size=(700, 8)).astype(np.float32))
+    fn = getattr(K, wrapper)
+    with pytest.raises(ValueError, match="schedule built for a CSR of 700 rows"):
+        fn(g.indptr, g.indices, g.weight, x, sub.schedule)
+    with pytest.raises(ValueError, match="schedule built for a CSR"):
+        K._check_schedule(g.schedule, g.n_node, sub.n_edge, g.indptr.device)
+    torch.testing.assert_close(fn(sub.indptr, sub.indices, sub.weight, x, sub.schedule),
+                               fn(sub.indptr, sub.indices, sub.weight, x),
+                               rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("name,cls", [

@@ -147,16 +147,17 @@ def test_main_cli_on_cpu(capsys):
 
 @pytest.mark.parametrize("argv,match", [
     (["--exp_mode=I2_GTL"], None),
-    (["--n_devices=2"], "A12"), (["--hier_mesh=2x4"], "A12"),
+    (["--n_devices=2"], None), (["--hier_mesh=2x4"], "A12"),
     (["--prog=1-0-2"], None),
     (["--records_path={tmp}"], None)],
     ids=["argv0-A8", "argv1-A12", "argv2-A12", "argv3-A11", "argv4-A11"])
 def test_main_raises_for_unported_parts(tmp_path, argv, match):
-    """Only the multi-device flags (ROADMAP A12) still raise. The flags that
-    once raised here (the I2-GTL edgewise loss, A8; ``--prog`` and
-    ``--records_path``, A11) now run: finite records, with the MRR columns
-    under I2_GTL, the grid cell recorded under ``--prog``, the curves saved
-    under ``--records_path``."""
+    """Only the two-level layout (``--hier_mesh``, ROADMAP A12b) still
+    raises. The flags that once raised here (the I2-GTL edgewise loss, A8;
+    ``--n_devices=2``, the row-sharded teacher of A12, here two gloo ranks
+    on the CPU; ``--prog`` and ``--records_path``, A11) now run: finite
+    records, with the MRR columns under I2_GTL, the grid cell recorded
+    under ``--prog``, the curves saved under ``--records_path``."""
     base = ["--dataset=TEXAS", "--epochs=1", "--device=cpu",
             "--force_set_to_best_config=0"]
     argv = [a.format(tmp=tmp_path) for a in argv]
