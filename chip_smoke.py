@@ -119,32 +119,29 @@ Phases (any failure exits non-zero; nothing is caught):
    relative), and each shard's ring-order sum of its buckets against the
    one-device kernel's rows; (ii) ranks started by ``parallel/launch.py``
    on phase 3's slice, padded to 169,472 rows for every S (``rb = 512 /
-   S``), dropout 0, 3 epochs under ``auto`` and ``pallas_bf16``: S = 1 over
-   NCCL, then S = 2 over NCCL when there are two cards, else two ranks on
-   the one card over the host-staged gloo transport (the line names it).
-   Each rank's launch counts must equal ``expected_dist_launches`` (one
-   launch a non-empty bucket a SpMM), the replicated parameters and the
-   records must be bit-equal across the ranks, and the records across S
-   within 1e-4 relative / 1e-3 absolute under ``auto``; under
-   ``pallas_bf16`` the loss within 1e-4 and each accuracy column within
-   ``DIST_BF16_FLIPS`` nodes (the bf16 rounding of each layer's operands
-   turns a sum-order change into an argmax change on near ties). At S = 2
-   also one step through the kernels against the plain versions (1e-5),
-   and 2 epochs of DropEdge and of the I2-GTL teacher (finite, MRRs in
-   (0, 1]). Printed: the step ms for each S and transport, the ring ms of
-   one d=256 SpMM, the all-reduce ms of the replicated gradient, and
+   S``), dropout 0, 3 epochs of each of ``DIST_RUNS`` (``auto``, and
+   ``pallas_bf16`` from two seeds): S = 1 (one rank, no collectives), then
+   S = 2 over NCCL when there are two cards, else two ranks on the one card
+   over the host-staged gloo transport (the line names it). Each rank's
+   launch counts must equal ``expected_dist_launches`` (one launch a
+   non-empty bucket a SpMM), the replicated parameters and the records
+   must be bit-equal across the ranks, and the records across S within
+   1e-4 relative / 1e-3 absolute under ``auto``; under ``pallas_bf16`` the
+   loss within 1e-4 and each accuracy column within ``DIST_BF16_FLIPS``
+   nodes (the bf16 rounding of each layer's operands turns a sum-order
+   change into an argmax change on near ties). At S = 2 also one step
+   through the kernels against the plain versions (1e-5), and 2 epochs of
+   DropEdge and of the I2-GTL teacher (finite, MRRs in (0, 1]). Printed:
+   the step ms for each S, the ring ms of one d=256 SpMM and the all-reduce
+   ms of the replicated gradient at S = 2 with the transport named, and
    ``comm_volume_stats``' bytes per SpMM; (iii) ``main --n_devices=2`` on
    the card.
-
-``--only-sharded`` runs phases 1 and 10 alone and prints their JSON line,
-not the kernels' or the ``ok`` line.
 
 Prints the kernels' JSON line (launches summed over every phase; phase 7's
 numbers under ``linkpred``, phase 8's under ``cli``, phase 9's under
 ``baselines``, phase 10's under ``sharded``), then as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
-import argparse
 import contextlib
 import copy
 import dataclasses
@@ -218,6 +215,10 @@ BASELINE_HIDDEN, BASELINE_EPOCHS = 64, 50
 # that enter the batch norms' statistics are the same in every run
 DIST_PAD, DIST_EPOCHS, DIST_EXTRA_EPOCHS, DIST_BUCKET_SHARDS = 512, 3, 2, 4
 DIST_BF16_FLIPS = 10  # nodes an accuracy column may move by across S, bf16
+# run -> (spmm method, seed offset); the second bf16 seed is a second
+# reading of how far bf16 rounding moves the accuracies across S
+DIST_RUNS = {"auto": ("auto", 0), "pallas_bf16": ("pallas_bf16", 0),
+             "pallas_bf16 seed+1": ("pallas_bf16", 1)}
 DIST_DROPEDGE = ["--force_set_to_best_config=0", "--type_trick=DropEdge",
                  "--apply_graph_dropout=1"]
 DIST_I2GTL = ["--exp_mode=I2_GTL", "--task=nodeC"]
@@ -1550,27 +1551,21 @@ def timed_ms(fn, dev, reps: int = 10) -> float:
 def dist_step_grads(model, cfg, g, g_last, x, y, mask):
     """One sharded train step's loss (summed over the ranks) and this rank's
     gradients after the replicated ones are summed (no optimizer update)."""
-    from gnn_tail_generalization_tpu_torch.train.loops import (
-        sum_replicated_grads, teacher_loss)
+    from gnn_tail_generalization_tpu_torch.train.loops import teacher_step_grads
 
     comm = g.comm
     model.train()
     model.zero_grad(set_to_none=True)
-    _, classi, se_reg, _ = model(g, x, g_last=g_last)
-    n_train = comm.all_reduce_sum_(mask.float().sum())
-    loss = teacher_loss(cfg, classi, se_reg, y, mask, None, n_train=n_train,
-                        n_shards=comm.world_size)
-    loss.backward()
-    sum_replicated_grads(model, comm)
+    loss, _ = teacher_step_grads(cfg, model, g, x, y, mask, g_last=g_last)
     total = comm.all_reduce_sum_(loss.detach().clone()).item()
     return total, {k: p.grad.detach().clone() for k, p in model.named_parameters()}
 
 
-def dist_rank(comm, spec: dict) -> dict:
+def dist_rank(comm, argv: list) -> dict:
     """Phase 10, one rank (started by ``parallel/launch.py:spawn``): the
-    data of ``spec["argv"]`` prepared for this rank, the sharded teacher
-    trained under each method (launch counts read around each run), the
-    ring and all-reduce timed, and with ``spec["extra"]`` one
+    data of ``argv`` prepared for this rank and the sharded teacher trained
+    in each of ``DIST_RUNS`` (launch counts read around each run); with
+    more than one rank also the ring and the all-reduce timed, one
     kernel-vs-plain step, sharded DropEdge and the I2-GTL teacher. Runs on
     the rank's device (the CPU for a dry run of this function)."""
     from gnn_tail_generalization_tpu_torch import main as port_main
@@ -1584,7 +1579,6 @@ def dist_rank(comm, spec: dict) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     s, dev = comm.world_size, comm.device
     t0 = time.perf_counter()
-    argv = spec["argv"]
     base = build_config(**port_main.parse_args(argv)[0])
     # the edge view for DropEdge; no other run reads it
     cfg, pd = port_main.load_prepared(
@@ -1612,8 +1606,11 @@ def dist_rank(comm, spec: dict) -> dict:
             "replicated": {k: v.cpu().numpy() for k, v in res.state_dict.items()
                            if not is_row_sharded(k)}}
 
-    for method in ("auto", "pallas_bf16"):
-        run(method, dataclasses.replace(cfg, spmm_method=method), DIST_EPOCHS)
+    for name, (method, seed) in DIST_RUNS.items():
+        run(name, dataclasses.replace(cfg, spmm_method=method,
+                                      random_seed=cfg.random_seed + seed), DIST_EPOCHS)
+    if s == 1:  # no collective to time
+        return out
     g = pd.graph.to(dev)
     x = torch.randn(g.rows_per_shard, 256, device=dev,
                     generator=torch.Generator(device=dev).manual_seed(comm.rank))
@@ -1623,8 +1620,6 @@ def dist_rank(comm, spec: dict) -> dict:
     flat = torch.randn(n_rep, device=dev)
     out["all_reduce_ms"] = timed_ms(lambda: comm.all_reduce_sum_(flat), dev)
     out["all_reduce_floats"] = n_rep
-    if not spec["extra"]:
-        return out
 
     # one step, kernels vs plain versions, from the same weights
     cfg_k = dataclasses.replace(cfg, spmm_method="pallas")
@@ -1661,14 +1656,13 @@ def sharded_phase(edges: np.ndarray, gb, card_name: str, totals: dict) -> dict:
     two = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
     runs, records = {}, {}
     for s, transport in ((1, "nccl"), (2, two)):
-        where = ("one card" if s == 1 else
-                 "a card a rank" if transport == "nccl" else
-                 "2 ranks on one card, host-staged")
-        log(f"  (ii) S = {s} over {transport} ({where}): {DIST_EPOCHS} epochs under "
-            f"auto and pallas_bf16, rb = {DIST_PAD // s}")
+        where = ("one rank, no collectives" if s == 1 else
+                 "over nccl, a card a rank" if transport == "nccl" else
+                 "over gloo, 2 ranks on one card, host-staged")
+        log(f"  (ii) S = {s} ({where}): {DIST_EPOCHS} epochs of each of "
+            f"{list(DIST_RUNS)}, rb = {DIST_PAD // s}")
         t0 = time.perf_counter()
-        ranks = spawn(dist_rank, s, transport, "cuda",
-                      {"argv": SLICE_ARGS, "extra": s > 1})
+        ranks = spawn(dist_rank, s, transport, "cuda", SLICE_ARGS)
         spawn_s = time.perf_counter() - t0
         for r in ranks:
             for name, run in r["runs"].items():
@@ -1695,17 +1689,19 @@ def sharded_phase(edges: np.ndarray, gb, card_name: str, totals: dict) -> dict:
                 f"{run['comm']['all_reduces']} step_ms "
                 f"{[round(v, 3) for v in run['step_ms']]} [{card_name}]")
         log(f"    n_node_pad {r0['n_node_pad']}, prepare {r0['prepare_s']:.1f} s a rank, "
-            f"spawn to results {spawn_s:.1f} s; ring ms per SpMM (d=256, "
-            f"{transport}) {r0['ring_ms']}; all-reduce of {r0['all_reduce_floats']} "
-            f"floats {r0['all_reduce_ms']:.4f} ms; replicated parameters "
-            f"bit-equal across ranks [{card_name}]")
-        runs[s] = {"transport": transport, "spawn_s": spawn_s,
-                   **{k: r0[k] for k in ("prepare_s", "n_node_pad", "ring_ms",
-                                         "all_reduce_ms", "all_reduce_floats")},
+            f"spawn to results {spawn_s:.1f} s; replicated parameters bit-equal "
+            f"across ranks [{card_name}]")
+        runs[s] = {"where": where, "spawn_s": spawn_s,
+                   **{k: r0[k] for k in ("prepare_s", "n_node_pad")},
                    "runs": {name: {k: run[k] for k in ("step_ms", "launches", "comm")}
                             for name, run in r0["runs"].items()},
                    "ranks_launches": [r["runs"]["auto"]["launches"] for r in ranks]}
         if s > 1:
+            log(f"    ring ms per SpMM (d=256, {where}) {r0['ring_ms']}; all-reduce of "
+                f"{r0['all_reduce_floats']} floats {r0['all_reduce_ms']:.4f} ms "
+                f"[{card_name}]")
+            runs[s].update({k: r0[k] for k in ("ring_ms", "all_reduce_ms",
+                                               "all_reduce_floats")})
             runs[s]["step_parity"] = [r["step_parity"] for r in ranks]
             for r in ranks:
                 bad = {k: v for k, v in r["step_parity"].items() if v > REL_TOL}
@@ -1719,16 +1715,18 @@ def sharded_phase(edges: np.ndarray, gb, card_name: str, totals: dict) -> dict:
             mrr = r0["runs"]["I2-GTL"]["records"][:, -2:]
             assert r0["runs"]["I2-GTL"]["columns"][-2:] == ["linkp_train", "linkp_test"]
             assert (mrr > 0).all() and (mrr <= 1).all(), mrr
-        records[s] = {m: r0["runs"][m]["records"] for m in ("auto", "pallas_bf16")}
+        records[s] = {m: r0["runs"][m]["records"] for m in DIST_RUNS}
     n_sets = ranks[0]["n_sets"]
-    for m in ("auto", "pallas_bf16"):
+    flipped = {}
+    for m in DIST_RUNS:
         a, b = records[1][m], records[2][m]
         flips = np.abs(a - b)[:, 1:] * n_sets / 100  # nodes whose argmax moved
+        flipped[m] = flips.max(axis=0).tolist()
         log(f"  records S = 1 vs S = 2 ({m}): max |diff| {np.abs(a - b).max():.3e}, "
             f"loss rel {np.abs(a[:, 0] - b[:, 0]).max() / np.abs(a[:, 0]).max():.3e}, "
             f"nodes flipped per accuracy column {flips.max(axis=0).round(2).tolist()} "
             f"of {n_sets.astype(int).tolist()}")
-        if m == "auto":
+        if DIST_RUNS[m][0] == "auto":
             np.testing.assert_allclose(b, a, rtol=1e-4, atol=1e-3, err_msg=f"S=1 vs S=2 {m}")
         else:
             # bf16 rounds each layer's operands: a sum-order change of ~1e-7
@@ -1753,14 +1751,10 @@ def sharded_phase(edges: np.ndarray, gb, card_name: str, totals: dict) -> dict:
     log(f"  cli: {cli_s:.1f} s, records {np.round(rec[-1], 4).tolist()}")
     log(f"  phase 10: {phase_s:.1f} s")
     return {"phase_s": phase_s, "buckets": buckets, "runs": runs,
-            "comm_volume": stats, "cli_s": cli_s}
+            "flipped_nodes": flipped, "comm_volume": stats, "cli_s": cli_s}
 
 
-def main(argv=None) -> int:
-    parser = argparse.ArgumentParser(description="Drive the port on one CUDA card.")
-    parser.add_argument("--only-sharded", action="store_true",
-                        help="run phases 1 and 10 alone (no kernels or ok line)")
-    args = parser.parse_args(argv)
+def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
         return 2
@@ -1787,14 +1781,6 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     log(f"kernels built into {_build.load()._name}")
     log(f"build_s={time.perf_counter() - t0:.2f}")
-    if args.only_sharded:
-        log("== phase 10: the row-sharded teacher")
-        eb = standard_pipeline(fast_powerlaw_graph(BENCH_NODES, BENCH_EDGES, 0), BENCH_NODES)
-        totals = {k: 0 for k in K.LAUNCHES}
-        sharded = sharded_phase(eb, build_graph(eb, BENCH_NODES, with_dense=False),
-                                card_name, totals)
-        print(json.dumps({"sharded": sharded, "launches": totals, "card": card_name}))
-        return 0
 
     log("== phase 2: kernels vs plain versions on the card")
     t0 = time.perf_counter()

@@ -29,7 +29,7 @@ from __future__ import annotations
 import dataclasses
 import time
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Mapping, Optional, Union
+from typing import Any, Dict, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import scipy.sparse as sp
@@ -179,6 +179,41 @@ def sum_replicated_grads(model: torch.nn.Module, comm: Comm) -> None:
         t.copy_(part.view_as(t))
 
 
+def teacher_step_grads(cfg: Config, model: TeacherGNN, g: Union[Graph, DistGraph],
+                       x: torch.Tensor, y: torch.Tensor, train_mask: torch.Tensor, *,
+                       n_train: Optional[torch.Tensor] = None,
+                       g_last: Optional[Union[Graph, DistGraph]] = None,
+                       generator: Optional[torch.Generator] = None,
+                       graph_generator: Optional[torch.Generator] = None,
+                       edgewise=None) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The loss and gradients of one train step, no optimizer update:
+    forward (the model's mode as the caller set it), ``teacher_loss``,
+    backward, and on a rank of a sharded run (``g`` a ``DistGraph``) the
+    replicated gradients summed over the ranks. ``edgewise(common)`` gives the
+    edgewise loss and its MRR where the config has that component.
+    ``n_train``: the global train count of a sharded run, all-reduced here
+    when not given. Returns the loss (the rank's part) and the MRR or
+    None."""
+    common, classi, se_reg_all, _ = model(g, x, generator=generator,
+                                          graph_generator=graph_generator, g_last=g_last)
+    l_struct = linkp = None
+    if edgewise is not None:
+        # the full (unmasked) embedding (trainer:418)
+        l_struct, linkp = edgewise(common)
+    comm = g.comm if isinstance(g, DistGraph) else None
+    n_shards = 1
+    if comm is not None:
+        n_shards = comm.world_size
+        if n_train is None:
+            n_train = comm.all_reduce_sum_(train_mask.float().sum())
+    loss = teacher_loss(cfg, classi, se_reg_all, y, train_mask, l_struct,
+                        n_train=n_train, n_shards=n_shards)
+    loss.backward()
+    if comm is not None:
+        sum_replicated_grads(model, comm)
+    return loss, linkp
+
+
 def train_teacher(
     cfg: Config,
     data: PreparedData,
@@ -270,10 +305,8 @@ def train_teacher(
     keep_best = "SEMLP" in cfg.train_which
     acc_i = cols.index("acc_test")
     best_acc, best_state = -1.0, None
-    n_shards, n_train = 1, None
-    if comm is not None:
-        n_shards = comm.world_size
-        n_train = comm.all_reduce_sum_(train_mask.float().sum())
+    n_train = None if comm is None else comm.all_reduce_sum_(train_mask.float().sum())
+    edgewise = None if ew_fn is None else (lambda h: ew_fn(h, pair_gen, "train"))
     log_here = log_every and (comm is None or comm.rank == 0)
 
     for epoch in range(epochs):
@@ -281,17 +314,9 @@ def train_teacher(
         t0 = time.perf_counter()
         model.train()
         opt.zero_grad(set_to_none=True)
-        common, classi, se_reg_all, _ = model(g, x, generator=drop_gen,
-                                              graph_generator=graph_gen, g_last=g_last)
-        l_struct = linkp_train = None
-        if ew_fn is not None:
-            # the full (unmasked) embedding (trainer:418)
-            l_struct, linkp_train = ew_fn(common, pair_gen, "train")
-        loss = teacher_loss(cfg, classi, se_reg_all, y, train_mask, l_struct,
-                            n_train=n_train, n_shards=n_shards)
-        loss.backward()
-        if comm is not None:
-            sum_replicated_grads(model, comm)
+        loss, linkp_train = teacher_step_grads(
+            cfg, model, g, x, y, train_mask, n_train=n_train, g_last=g_last,
+            generator=drop_gen, graph_generator=graph_gen, edgewise=edgewise)
         opt.step()
         _sync(device)
         step_ms.append((time.perf_counter() - t0) * 1e3)

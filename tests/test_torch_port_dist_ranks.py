@@ -108,14 +108,10 @@ def rank_step(comm, ct, arrays, init):
     model.train()
     x, y = torch.from_numpy(pd.x), torch.from_numpy(pd.y)
     mask = torch.from_numpy(pd.train_mask)
-    common, classi, se_reg, _ = model(g, x)
-    l_struct, _ = score_pairs_sharded(g, common, [torch.from_numpy(p)
-                                                  for p in fixed_pairs(90)])
-    n_train = comm.all_reduce_sum_(mask.float().sum())
-    loss = tloops.teacher_loss(ct, classi, se_reg, y, mask, l_struct,
-                               n_train=n_train, n_shards=S)
-    loss.backward()
-    tloops.sum_replicated_grads(model, comm)
+    pairs = [torch.from_numpy(p) for p in fixed_pairs(90)]
+    loss, _ = tloops.teacher_step_grads(
+        ct, model, g, x, y, mask,
+        edgewise=lambda h: score_pairs_sharded(g, h, pairs))
     total = comm.all_reduce_sum_(loss.detach().clone()).item()
     return total, {k: p.grad.numpy() for k, p in model.named_parameters()}
 
