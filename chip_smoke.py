@@ -1,6 +1,7 @@
 """Drive the PyTorch port's teacher, trick zoo, Cold Brew student, label
 propagation, link-prediction, self-supervised baseline and row-sharded
-teacher paths on one CUDA card.
+paths (the teacher, the students, LP and C&S, link prediction) on one CUDA
+card.
 
     python3 chip_smoke.py
 
@@ -73,8 +74,9 @@ Phases (any failure exits non-zero; nothing is caught):
    trainable [n, 256] embedding, the f32 kernel 4 per step + 2 per eval);
    (v) one step of each at dropout 0 through the kernels against the plain
    versions, loss and every gradient within the larger of 1e-5 and 4x the
-   plain step's own sum-order floor (the kernels sum in another order than
-   the plain version, so no step is expected to be bit-identical); (vi) GCN (the f32 kernel) and the
+   plain step's own sum-order floor, the largest over three reorderings
+   (the kernels sum in another order than the plain version, so no step is
+   expected to be bit-identical); (vi) GCN (the f32 kernel) and the
    Transformer (no launch) at the bench shape; (vii) ``--exp_mode=I2_GTL
    --task=linkp`` through ``main`` (the 2,000-node stand-in, dense, no
    launch);
@@ -136,10 +138,39 @@ Phases (any failure exits non-zero; nothing is caught):
    ms of the replicated gradient at S = 2 with the transport named, and
    ``comm_volume_stats``' bytes per SpMM; (iii) ``main --n_devices=2`` on
    the card.
+11. the sharded students, LP and C&S, and link prediction: first
+   ``train_linkpred(comm=...)`` at S = 1 (one rank in this process, no
+   collective) on phase 7's citation2 split with phase 7 (ii)'s bench
+   config, 2 epochs of 8 steps: the host bucket build's seconds, exactly
+   phase 7's 34 bf16 launches, and the step ms beside phase 7's one-device
+   step. Then, at S = 1 (in this process) and at S = 2 (ranks started by
+   ``parallel/launch.py``; over NCCL with two cards, else two ranks on the
+   one card over host-staged gloo), on phase 3's slice padded to 169,472
+   rows: (ii) ``run_experiment`` for each of ``STUDENT_DIST_RUNS`` (SEMLP
+   under ``auto`` and ``pallas_bf16``: the teacher at dropout 0, the SE
+   table, part 1, part 2; StudentBaseMLP; GraphMLP, which crops A^2 on the
+   host; LP under both methods), 2 epochs a phase, each rank's launches
+   equal to ``student_dist_launches`` (one a non-empty bucket a ring), the
+   records and replicated parameters bit-equal across the ranks, and the
+   records across S: losses within 1e-4 relative / 1e-3 absolute,
+   accuracies equal under ``auto`` and within ``DIST_BF16_FLIPS`` nodes
+   under ``pallas_bf16``; (i) ``dist_latent_replace`` at B = 65,536 against
+   the run's [169343, 512] SE table, gathered, held to the one-device op
+   (1e-5 relative a row, or a tie at the K-th place), and its ms a call;
+   (iii) a sharded LP run (50 propagations) and the C&S stage pair on
+   sharded DA / AD adjacencies, kernels against ``plain_kernels()`` (1e-5);
+   (iv) the bench-shape graph with citation2's widths (128 features, hidden
+   256) in f32 at dropout 0 through ``train_linkpred(comm=...)``, 2 epochs
+   of ``LINK_STEPS`` steps and a 1,024-positive eval split: exact launch
+   counts, the stats across S within 1e-4, the epoch seconds, and one
+   sharded step through the kernels against the plain versions within the
+   larger of 1e-5 and 4x the plain step's own sum-order floor (the plain
+   step on the one-device graph). Phase 11's seconds are printed.
 
 Prints the kernels' JSON line (launches summed over every phase; phase 7's
 numbers under ``linkpred``, phase 8's under ``cli``, phase 9's under
-``baselines``, phase 10's under ``sharded``), then as the last line
+``baselines``, phase 10's under ``sharded``, phase 11's under
+``sharded_students``), then as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 import contextlib
@@ -224,6 +255,21 @@ DIST_DROPEDGE = ["--force_set_to_best_config=0", "--type_trick=DropEdge",
 DIST_I2GTL = ["--exp_mode=I2_GTL", "--task=nodeC"]
 DIST_CLI_ARGS = ["--dataset=ogbn-arxiv", "--n_devices=2", "--epochs=2",
                  "--device=cuda", "--log_every=1"]
+# phase 11: the sharded students, LP and C&S, and link prediction. Every run
+# takes phase 10's padding (rb = DIST_PAD // S) and dropout 0 in the teacher;
+# GraphMLP crops A^2 (the default A^3 takes ~17 s of host a rank here)
+STUDENT_DIST_EPOCHS = 2
+GRAPHMLP_ARXIV_ARGS = ["--dataset=ogbn-arxiv", "--train_which=GraphMLP",
+                       "--graphMLP_reg=0.5", "--graphMLP_r=2", "--device=cuda"]
+# run -> (argv, spmm method)
+STUDENT_DIST_RUNS = {"SEMLP auto": (SEMLP_ARGS, "auto"),
+                     "SEMLP pallas_bf16": (SEMLP_ARGS, "pallas_bf16"),
+                     "StudentBaseMLP": (STUDENT_RUNS[0], "auto"),
+                     "GraphMLP": (GRAPHMLP_ARXIV_ARGS, "auto"),
+                     "LP auto": (LP_ARGS, "auto"),
+                     "LP pallas_bf16": (LP_ARGS, "pallas_bf16")}
+N_PROP = 50  # run_pure_lp's propagations
+LINK_EVAL_POS, LINK_STEPS = 1024, 2  # the sharded link runs' eval split, steps an epoch
 
 
 def log(msg: str) -> None:
@@ -762,23 +808,34 @@ def plain_kernels():
 
 def lp_grads(cfg, model, g, x, batch):
     """Loss and gradients of one train-mode step (no update) on graph ``g``,
-    the hoisted aggregation recomputed for it."""
+    the hoisted aggregation recomputed for it; on a rank's ``DistGraph``
+    (``x`` its rows) the rank's gradients after the replicated ones are
+    summed (the sharded trainer's rule)."""
     from gnn_tail_generalization_tpu_torch.linkpred import model as lpm
+    from gnn_tail_generalization_tpu_torch.parallel.distgraph import (
+        comm_of, sum_replicated_grads)
 
     const = lpm.link_const(cfg, g, x)
     model.train()
     model.zero_grad(set_to_none=True)
     loss = lpm.make_loss_fn(cfg, model)(const, *batch)
-    loss.backward()
+    comm = comm_of(g)
+    (loss if comm is None else loss / comm.world_size).backward()
+    if comm is not None:
+        sum_replicated_grads(model, comm)
     return loss.item(), {k: p.grad.detach().clone()
                          for k, p in model.named_parameters()}
 
 
-def lp_parity(cfg, g, g_reordered, x, train_edges, tag) -> dict:
+def lp_parity(cfg, g, reorderings, x, train_edges, tag) -> dict:
     """One step at dropout 0 from fixed weights, the kernels against the
     plain versions, in loss and every gradient: each within the larger of
-    REL_TOL and 4x the plain step's own sum-order floor (the same plain step
-    on ``g_reordered``, the edges of every row summed in another order)."""
+    REL_TOL and 4x the plain step's own sum-order floor, the largest
+    difference of the same plain step on each graph of ``reorderings`` (the
+    edges of every row summed in another order). One reordering alone is
+    too few where ReLU masks flip with the sum order (the default config's
+    layer 0): its floor for one tensor ranged 2.5e-4 to 1.0e-3 over two
+    runs, and a kernel step at 1.01e-3 then failed 4x the lower one."""
     from gnn_tail_generalization_tpu_torch.linkpred import model as lpm
 
     dev = x.device
@@ -794,12 +851,13 @@ def lp_parity(cfg, g, g_reordered, x, train_edges, tag) -> dict:
     loss_k, grads_k = lp_grads(cfg, model, g, x, batch)
     with plain_kernels():
         loss_p, grads_p = lp_grads(cfg, model, g, x, batch)
-        loss_f, grads_f = lp_grads(cfg, model, g_reordered, x, batch)
+        floors = [lp_grads(cfg, model, g_re, x, batch) for g_re in reorderings]
     rows = {"loss": (abs(loss_k - loss_p) / abs(loss_p),
-                     abs(loss_f - loss_p) / abs(loss_p))}
+                     max(abs(loss_f - loss_p) / abs(loss_p) for loss_f, _ in floors))}
     for k in grads_p:
         assert torch.isfinite(grads_k[k]).all(), (tag, k)
-        rows[k] = (rel_err(grads_k[k], grads_p[k]), rel_err(grads_f[k], grads_p[k]))
+        rows[k] = (rel_err(grads_k[k], grads_p[k]),
+                   max(rel_err(grads_f[k], grads_p[k]) for _, grads_f in floors))
     log(f"  {tag}: loss kernel={loss_k:.8f} plain={loss_p:.8f}")
     for k, (rel, floor) in rows.items():
         bound = max(REL_TOL, 4 * floor)
@@ -897,7 +955,8 @@ def run_linkpred(cfg, x, split_edge, msg, n_node, expect, tag, card_name,
 
 def linkpred_phase(card_name: str, totals: dict, dev) -> tuple:
     """Phase 7: I2-GTL link prediction at the ogbl-citation2 shape. Returns
-    its numbers and the message edges, which phase 9 trains on."""
+    its numbers, the message edges, which phase 9 trains on, and the split,
+    which phase 11 trains on."""
     from gnn_tail_generalization_tpu_torch import main as port_main
     from gnn_tail_generalization_tpu_torch.linkpred import model as lpm
     from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
@@ -957,7 +1016,8 @@ def linkpred_phase(card_name: str, totals: dict, dev) -> tuple:
 
     log("  (v) one-step parity on the citation2 graph, kernels vs plain (dropout 0)")
     perm = np.random.default_rng(2).permutation(msg.shape[1])
-    g_re = lpm.link_graph(bench, msg[:, perm], C2_NODES).to(dev)
+    g_re = [lpm.link_graph(bench, msg[:, perm], C2_NODES).to(dev),
+            row_shuffled(g, 3), row_shuffled(g, 4)]
     train_edges = split_edge["train"]["edge"]
     parity = {"bench": lp_parity(bench, g, g_re, x, train_edges, "bench"),
               "default": lp_parity(default, g, g_re,
@@ -989,7 +1049,7 @@ def linkpred_phase(card_name: str, totals: dict, dev) -> tuple:
             "bench_timed": timed,
             "default": {**default_run,
                         "step_ms": default_run["epoch_s"][1] / 8 * 1e3},
-            "parity": parity, "others": others, "cli": cli}, msg
+            "parity": parity, "others": others, "cli": cli}, msg, split_edge
 
 
 def reader_phase(card_name: str, totals: dict, root: str) -> dict:
@@ -1753,6 +1813,393 @@ def sharded_phase(edges: np.ndarray, gb, card_name: str, totals: dict) -> dict:
     return {"phase_s": phase_s, "buckets": buckets, "runs": runs,
             "flipped_nodes": flipped, "comm_volume": stats, "cli_s": cli_s}
 
+def student_dist_launches(name: str, cfg, g, g_last, dad) -> dict:
+    """A rank's SpMM launches in phase 11's run ``name``: SEMLP's teacher as
+    ``expected_dist_launches`` plus one ring a layer for the SE-table
+    forward; LP one ring a propagation on the DAD adjacency; the MLP
+    students none. One launch a non-empty bucket a ring."""
+    counts = {"spmm_csr_f32": 0, "spmm_csr_bf16": 0, "spmm_csr_plain": 0}
+    kernel = "spmm_csr_bf16" if cfg.spmm_method == "pallas_bf16" else "spmm_csr_f32"
+    if name.startswith("SEMLP"):
+        counts = expected_dist_launches(cfg, STUDENT_DIST_EPOCHS, g, g_last)
+        counts[kernel] += cfg.num_layers * sum(b.n_edge > 0 for b in g.buckets)
+    elif name.startswith("LP"):
+        counts[kernel] = N_PROP * sum(b.n_edge > 0 for b in dad.buckets)
+    return counts
+
+
+def check_dist_replace(comm, cfg, pd, res) -> dict:
+    """Phase 11 (i): ``dist_latent_replace`` at SEMLP's shape (the run's own
+    [169343, 512] SE table, REPLACE_BATCH queries from part 1) against the
+    one-device op on the whole table, gathered; its ms a call. A row may
+    differ only where its K-th score is tied."""
+    from gnn_tail_generalization_tpu_torch.models.semlp import SEMLPPart1
+    from gnn_tail_generalization_tpu_torch.ops.topk_attention import (
+        dist_latent_replace, latent_neighbor_replace)
+    from gnn_tail_generalization_tpu_torch.train import loops
+
+    dev, g = comm.device, pd.graph
+    k = cfg.SEMLP_topK_2_replace
+    se = loops.collect_teacher_se(cfg, pd, res.extra["teacher"].best_state_dict,
+                                  device=dev)
+    with torch.device("meta"):
+        part1 = SEMLPPart1(cfg, se.shape[1])
+    part1.load_state_dict(res.extra["part1"].state_dict, assign=True)
+    part1.to(dev).eval()
+    take = loops.make_take_rows(g)
+    with torch.no_grad():
+        x = torch.as_tensor(pd.x, device=dev)
+        q = part1(take(x, torch.arange(REPLACE_BATCH, device=dev)))
+        q = q * res.state_dict["alphas"][0]
+
+    def op():
+        return dist_latent_replace(g, q, se, k, g.n_node, g.rows_per_shard)
+
+    got = op()
+    ms = timed_ms(op, dev, reps=3)
+    full = comm.all_gather(se).reshape(-1, se.shape[1])[:g.n_node]
+    out = {"table": list(full.shape), "batch": REPLACE_BATCH, "ms": ms}
+    if comm.shard == 0:
+        want = latent_neighbor_replace(q, full, k)
+        diff = (got - want).abs()
+        rel = diff.amax(dim=1) / want.abs().amax(dim=1).clamp(min=1e-30)
+        differ = (rel > REL_TOL).nonzero()[:, 0]
+        for r in differ.tolist():  # explained only by a tie at the K-th place
+            top = torch.topk(q[r] @ full.T, k + 1).values
+            assert top[k - 1] == top[k], (r, top)
+        out.update(max_abs_diff=float(diff.max()), rows_differ=int((diff.amax(1) > 0).sum()),
+                   rows_beyond_tol=int(differ.numel()))
+        if comm.world_size == 1:
+            out["one_device_ms"] = median_ms(lambda: latent_neighbor_replace(q, full, k),
+                                             reps=3, warmup=1)
+    return out
+
+
+def check_dist_propagation(comm, cfg, pd) -> dict:
+    """Phase 11 (iii): one sharded LP run (N_PROP propagations at d = the
+    classes) and C&S's stage pair on sharded DA / AD adjacencies, the
+    kernels against ``plain_kernels()``."""
+    from gnn_tail_generalization_tpu_torch.propagation import correlation as corr
+
+    dev, g = comm.device, pd.graph
+    nc = cfg.num_classes
+    y = torch.as_tensor(pd.y, device=dev)
+    idx = torch.as_tensor(pd.train_idx, device=dev)
+    lp = cfg.lpStep
+    adj = {w: corr.gen_normalized_dist_adj(pd.edge_index, g.n_node, comm, w, rb=g.rb).to(dev)
+           for w in ("DAD", lp.A1, lp.A2)}
+    full = torch.softmax(torch.randn(g.n_node_pad, nc, device=dev,
+                                     generator=torch.Generator(device=dev).manual_seed(0)), 1)
+    model_out = g.local_rows(full)
+
+    def run():
+        out = corr.label_propagation(y, idx, adj["DAD"], 0.5, N_PROP, nc)
+        cs = corr.double_correlation_autoscale(
+            y, model_out, idx, idx, adj[lp.A1], lp.alpha1, lp.num_propagations1,
+            adj[lp.A2], lp.alpha2, lp.num_propagations2, nc)
+        return (out,) + cs
+
+    kern = run()
+    with plain_kernels():
+        plain = run()
+    names = ("lp", "cs_corrected", "cs_smoothed")
+    mine = torch.tensor([[float((a - b).abs().max()), float(b.abs().max())]
+                         for a, b in zip(kern, plain)], device=dev)
+    every = comm.all_gather(mine).amax(dim=0)  # the largest over the ranks
+    return {"rel_err": {k: float(v[0] / v[1]) for k, v in zip(names, every)},
+            "cs": [lp.fn, lp.A1, lp.A2]}
+
+
+def link_bench_config(**kw):
+    """Phase 7's bench config (SAGE + DOT, ``pallas_bf16``), with ``kw``."""
+    from gnn_tail_generalization_tpu_torch.linkpred import model as lpm
+
+    return lpm.LinkPredConfig(**{**dict(
+        encoder="SAGE", predictor="DOT", loss_func="ce_loss", use_node_feats=True,
+        train_node_emb=False, eval_metric="mrr", num_neg=3, batch_size=64 * 1024,
+        spmm_method="pallas_bf16"), **kw})
+
+
+def dist_link_rank(comm, reset) -> dict:
+    """Phase 11 (iv) at the bench shape, one rank: the bench config's
+    widths at dropout 0 and in f32 (``auto``: under ``pallas_bf16`` each
+    Dense layer rounds its input to bf16, so a 1e-7 sum-order change between
+    S = 1 and S = 2 moves the MRR far past 1e-4) through
+    ``train_linkpred(comm=...)``, LINK_STEPS steps an epoch, 2 epochs, a
+    small eval split; then one step through the kernels against the plain
+    versions, bounded by the plain step's own sum-order floor (the plain
+    step on the one-device graph, which sums each row whole where the ring
+    sums it a bucket at a time)."""
+    from gnn_tail_generalization_tpu_torch.linkpred import model as lpm
+    from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
+
+    dev, n = comm.device, BENCH_NODES
+    split, msg, _ = lp_split(n, BENCH_EDGES)
+    for part in ("valid", "test"):
+        split[part] = {"edge": split[part]["edge"][:LINK_EVAL_POS],
+                       "edge_neg": split[part]["edge_neg"][:LINK_EVAL_POS * EVAL_NEG]}
+    cfg = link_bench_config(dropout=0.0, spmm_method="auto")
+    x = torch.randn(n, C2_FEATS, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(3))
+    reset()
+    run = lpm.train_linkpred(cfg, x, msg, n, epochs=2, eval_steps=2, split_edge=split,
+                             msg_edges=msg, max_steps_per_epoch=LINK_STEPS, comm=comm,
+                             device=dev)
+    launches, counts = dict(K.LAUNCHES), dict(comm.counts)
+    g = lpm.link_dist_graph(cfg, msg, n, comm).to(dev)
+    live = [sum(b.n_edge > 0 for b in bs) for bs in (g.buckets, g.buckets_t)]
+    n_pos = len(split["train"]["edge"])
+    bsz = min(cfg.batch_size, n_pos)
+    steps = 2 * -(-min(n_pos, LINK_STEPS * bsz) // bsz)  # train_linkpred's n_steps
+    # the hoisted aggregation, per step layer 2 forward and its transposed
+    # backward, one eval encode (layer 2)
+    expect = {"spmm_csr_f32": live[0] * (steps + 2) + live[1] * steps,
+              "spmm_csr_bf16": 0, "spmm_csr_plain": 0}
+    out = {"stats": run["stats"], "epoch_s": run["epoch_s"], "epoch_loss": run["epoch_loss"],
+           "graph_build_s": run["graph_build_s"], "launches": launches,
+           "expected": expect, "comm": counts}
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    with torch.device(dev):
+        model = lpm.LinkPredModel(cfg, n, C2_FEATS, generator=gen)
+    pos = torch.as_tensor(split["train"]["edge"][:cfg.batch_size].astype(np.int64),
+                          device=dev)
+    b = pos.shape[0]
+    neg = torch.randint(0, n, (b, cfg.num_neg, 2), generator=gen, device=dev)
+    batch = (pos, neg, None, (torch.arange(b, device=dev) < b * 3 // 4).float())
+    xl = lpm.shard_rows(x, g, dev)
+    loss_k, grads_k = lp_grads(cfg, model, g, xl, batch)
+    with plain_kernels():
+        loss_p, grads_p = lp_grads(cfg, model, g, xl, batch)
+        g_one = lpm.link_graph(cfg, msg, n).to(dev)
+        loss_f, grads_f = lp_grads(cfg, model, g_one, x, batch)
+    rows = {"loss": (abs(loss_k - loss_p) / abs(loss_p), abs(loss_f - loss_p) / abs(loss_p))}
+    for k in grads_p:
+        rows[k] = (rel_err(grads_k[k], grads_p[k]), rel_err(grads_f[k], grads_p[k]))
+    out["step_parity"] = rows
+    return out
+
+
+def student_dist_rank(comm) -> dict:
+    """Phase 11 (i)-(iv), one rank (started by ``parallel/launch.py:spawn``;
+    S = 1 runs in the calling process, one rank with no collective): the
+    arxiv slice prepared for this rank, each of ``STUDENT_DIST_RUNS``
+    through ``run_experiment`` with the launch and collective counts read
+    around it; then the replace op, the propagation parity and the sharded
+    link prediction."""
+    from gnn_tail_generalization_tpu_torch import main as port_main
+    from gnn_tail_generalization_tpu_torch.config import build_config
+    from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
+    from gnn_tail_generalization_tpu_torch.parallel.distgraph import is_row_sharded
+    from gnn_tail_generalization_tpu_torch.propagation import correlation as corr
+    from gnn_tail_generalization_tpu_torch.train import loops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    s, dev = comm.world_size, comm.device
+    t0 = time.perf_counter()
+    cfg0, pd = port_main.load_prepared(build_config(**port_main.parse_args(SEMLP_ARGS)[0]),
+                                       "data", comm, rb=DIST_PAD // s)
+    g = pd.graph
+    dad = corr.gen_normalized_dist_adj(pd.edge_index, g.n_node, comm, "DAD", rb=g.rb)
+    # the nodes behind each accuracy column (part 2's acc_test: one batch)
+    train, sp = pd.train_mask, pd.splits
+    sets = {"acc_train": train, "acc_test": pd.test_mask,
+            "head": sp.large_deg_mask & ~train, "tail": sp.small_deg_mask & ~train,
+            "iso": sp.zero_deg_mask & ~train}
+    n_sets = comm.all_reduce_sum_(torch.tensor([float(m.sum()) for m in sets.values()],
+                                               device=dev))
+    out = {"rank": comm.rank, "prepare_s": time.perf_counter() - t0, "runs": {},
+           "n_sets": dict(zip(sets, n_sets.tolist())),
+           "batch": min(cfg0.batch_size, len(pd.train_idx))}
+
+    def reset():
+        K.reset_launch_counts()
+        comm.counts.update(dict.fromkeys(comm.counts, 0))
+
+    semlp = None
+    for name, (argv, method) in STUDENT_DIST_RUNS.items():
+        cfg = dataclasses.replace(fitted_like(argv, cfg0), spmm_method=method)
+        reset()
+        res = loops.run_experiment(cfg, pd, cfg.random_seed, STUDENT_DIST_EPOCHS,
+                                   device=dev)
+        run = {"launches": dict(K.LAUNCHES), "comm": dict(comm.counts),
+               "expected": student_dist_launches(name, cfg, g,
+                                                 loops.final_agg_view(cfg, pd), dad)}
+        if isinstance(res, dict):  # LP
+            run["result"] = res
+        else:
+            phases = {"teacher": res.extra.get("teacher"), "part1": res.extra.get("part1"),
+                      "part2": res}
+            run["phases"] = {
+                p: {"records": r.records, "columns": r.columns, "step_ms": r.step_ms,
+                    "eval_ms": r.eval_ms,
+                    "replicated": {k: v.cpu().numpy() for k, v in r.state_dict.items()
+                                   if not is_row_sharded(k)}}
+                for p, r in phases.items() if r is not None}
+        out["runs"][name] = run
+        if name == "SEMLP auto":
+            semlp = (cfg, res)
+    out["replace"] = check_dist_replace(comm, semlp[0], pd, semlp[1])
+    out["propagation"] = check_dist_propagation(comm, cfg0, pd)
+    out["link"] = dist_link_rank(comm, reset)
+    return out
+
+
+def link_c2_one_rank(card_name: str, split_edge, msg, phase7_step_ms: float,
+                     totals: dict) -> dict:
+    """Phase 11 (iv) at the citation2 shape, S = 1 in this process: the
+    bench config through ``train_linkpred(comm=...)`` as phase 7 (ii) runs
+    it, the host bucket build's seconds, the launches and the step ms."""
+    from gnn_tail_generalization_tpu_torch.linkpred import model as lpm
+    from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
+    from gnn_tail_generalization_tpu_torch.parallel.comm import Comm
+
+    dev = torch.device("cuda")
+    comm = Comm(0, 1, dev, "nccl")
+    x = torch.randn(C2_NODES, C2_FEATS, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(0))
+    K.reset_launch_counts()
+    run = lpm.train_linkpred(link_bench_config(), x, msg, C2_NODES, epochs=2, eval_steps=2,
+                             split_edge=split_edge, msg_edges=msg, max_steps_per_epoch=8,
+                             comm=comm, device=dev)
+    counts = dict(K.LAUNCHES)
+    expect = {"spmm_csr_f32": 0, "spmm_csr_bf16": 1 + 2 * 16 + 1, "spmm_csr_plain": 0}
+    step_ms = run["epoch_s"][1] / 8 * 1e3
+    log(f"  (iv) citation2 shape, S = 1 (one rank, no collectives): host bucket build "
+        f"{run['graph_build_s']:.1f} s, launches {counts}, epoch s "
+        f"{[round(v, 4) for v in run['epoch_s']]}, step {step_ms:.3f} ms against phase "
+        f"7's one-device {phase7_step_ms:.3f} ms, stats {run['stats']} [{card_name}]")
+    assert counts == expect, (counts, expect)
+    assert np.isfinite(run["epoch_loss"]).all() and all(
+        np.isfinite(v) for v in run["stats"].values()), run
+    for k, v in counts.items():
+        totals[k] += v
+    return {"graph_build_s": run["graph_build_s"], "epoch_s": run["epoch_s"],
+            "step_ms": step_ms, "phase7_step_ms": phase7_step_ms, "launches": counts}
+
+
+def sharded_students_phase(card_name: str, totals: dict, split_edge, msg,
+                           phase7_step_ms: float) -> dict:
+    """Phase 11: the sharded students, LP and C&S, and link prediction."""
+    from gnn_tail_generalization_tpu_torch.parallel.comm import Comm
+    from gnn_tail_generalization_tpu_torch.parallel.launch import spawn
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    link_c2 = link_c2_one_rank(card_name, split_edge, msg, phase7_step_ms, totals)
+    del split_edge, msg
+    torch.cuda.empty_cache()
+    two = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    results = {}
+    for s, transport in ((1, two), (2, two)):
+        where = ("one rank, no collectives" if s == 1 else
+                 "over nccl, a card a rank" if transport == "nccl" else
+                 "over gloo, 2 ranks on one card, host-staged")
+        log(f"  S = {s} ({where}), rb = {DIST_PAD // s}: {list(STUDENT_DIST_RUNS)}, "
+            f"{STUDENT_DIST_EPOCHS} epochs a phase")
+        t0 = time.perf_counter()
+        ranks = ([student_dist_rank(Comm(0, 1, dev, transport))] if s == 1 else
+                 spawn(student_dist_rank, s, transport, "cuda"))
+        torch.cuda.empty_cache()
+        wall = time.perf_counter() - t0
+        for r in ranks:
+            for name, run in r["runs"].items():
+                assert run["launches"] == run["expected"], (s, r["rank"], name, run)
+                for k, v in run["launches"].items():
+                    totals[k] += v
+            link = r["link"]
+            assert link["launches"] == link["expected"], (s, r["rank"], link)
+            for k, v in link["launches"].items():
+                totals[k] += v
+        r0 = ranks[0]
+        for name, run in r0["runs"].items():  # replicated state and records
+            if "phases" not in run:
+                assert all(r["runs"][name]["result"] == run["result"] for r in ranks), name
+                log(f"    {name:18s} {run['result']} launches/rank "
+                    f"{[r['runs'][name]['launches'] for r in ranks]} [{card_name}]")
+                continue
+            for p, ph in run["phases"].items():
+                assert np.isfinite(ph["records"]).all(), (name, p)
+                for r in ranks[1:]:
+                    other = r["runs"][name]["phases"][p]
+                    assert np.array_equal(other["records"], ph["records"]), (name, p)
+                    assert all(np.array_equal(other["replicated"][k], v)
+                               for k, v in ph["replicated"].items()), (name, p)
+                log(f"    {name:18s} {p:7s} step_ms "
+                    f"{[round(v, 3) for v in ph['step_ms']]}"
+                    + (f" eval_ms {[round(v, 3) for v in ph['eval_ms']]}"
+                       if ph["eval_ms"] else "") + f" [{card_name}]")
+            log(f"    {name:18s} launches/rank {[r['runs'][name]['launches'] for r in ranks]}"
+                f", collectives/rank {r0['runs'][name]['comm']}")
+        rep = r0["replace"]
+        log(f"    (i) dist_latent_replace, table {rep['table']}, B={rep['batch']}: "
+            f"{rep['ms']:.3f} ms a call"
+            + (f" (one-device op {rep['one_device_ms']:.3f} ms)" if s == 1 else "")
+            + f"; against the one-device op: max abs diff {rep['max_abs_diff']:.3e}, "
+            f"{rep['rows_differ']} rows differ, {rep['rows_beyond_tol']} beyond "
+            f"{REL_TOL:.0e} (each a tie at the K-th place) [{card_name}]")
+        prop = r0["propagation"]["rel_err"]
+        log(f"    (iii) LP ({N_PROP} propagations) and C&S "
+            f"{r0['propagation']['cs']}, kernels vs plain: {prop}")
+        assert all(v <= REL_TOL for v in prop.values()), prop
+        link = r0["link"]
+        log(f"    (iv) bench-shape link prediction: host bucket build "
+            f"{link['graph_build_s']:.1f} s, epoch s "
+            f"{[round(v, 4) for v in link['epoch_s']]} ({LINK_STEPS} steps), stats "
+            f"{link['stats']}, launches/rank {[r['link']['launches'] for r in ranks]} "
+            f"[{card_name}]")
+        for r in ranks:
+            for k, (rel, floor) in r["link"]["step_parity"].items():
+                bound = max(REL_TOL, 4 * floor)
+                assert rel <= bound, (s, r["rank"], k, rel, bound)
+        worst = max(r["link"]["step_parity"].items(), key=lambda kv: kv[1][0] /
+                    max(REL_TOL, 4 * kv[1][1]))
+        log(f"    one sharded step, kernels vs plain: worst {worst[0]} rel "
+            f"{worst[1][0]:.3e} (order floor {worst[1][1]:.3e})")
+        log(f"    S = {s}: {wall:.1f} s, prepare {r0['prepare_s']:.1f} s a rank")
+        results[s] = {"where": where, "wall_s": wall, "ranks": ranks}
+
+    one, two_r = results[1]["ranks"][0], results[2]["ranks"][0]
+    flipped = {}  # run and phase -> the most nodes an accuracy column moved by
+    for name, run in one["runs"].items():
+        other = two_r["runs"][name]
+        if "phases" not in run:  # LP: accuracies x100, rounded to 2 places
+            nodes = {c: abs(other["result"][c] - v) * one["n_sets"][c] / 100
+                     for c, v in run["result"].items()}
+            flipped[name] = max(nodes.values())
+        for p, ph in run.get("phases", {}).items():
+            a, b = ph["records"], other["phases"][p]["records"]
+            loss = [i for i, c in enumerate(ph["columns"]) if c.startswith("loss")]
+            np.testing.assert_allclose(b[:, loss], a[:, loss], rtol=1e-4, atol=1e-3,
+                                       err_msg=f"{name} {p}")
+            count = dict(one["n_sets"], **({"acc_test": one["batch"]} if p == "part2"
+                                           else {}))
+            nodes = [np.abs(a[:, i] - b[:, i]) * count[c] / 100
+                     for i, c in enumerate(ph["columns"]) if i not in loss]
+            flipped[f"{name} {p}"] = float(max(v.max() for v in nodes)) if nodes else 0.0
+    for key, moved in flipped.items():
+        # bf16 rounds each layer's operands: a sum-order change of ~1e-7 can
+        # move a near-tied argmax (phase 10); f32 moves none
+        assert moved <= (DIST_BF16_FLIPS if "bf16" in key else 0), (key, moved)
+    log(f"  records S = 1 vs S = 2: losses within 1e-4 / 1e-3; nodes an accuracy "
+        f"column moved by, per run and phase {flipped}")
+    for k in ("valid_mean", "test_mean"):
+        a, b = one["link"]["stats"][k], two_r["link"]["stats"][k]
+        assert abs(a - b) <= 1e-4 * abs(a), (k, a, b)
+    phase_s = time.perf_counter() - t_phase
+    log(f"  phase 11: {phase_s:.1f} s")
+    return {"phase_s": phase_s, "link_c2_s1": link_c2, "flipped_nodes": flipped,
+            **{f"S{s}": {"where": r["where"], "wall_s": r["wall_s"],
+                         **{k: r["ranks"][0][k] for k in ("replace", "propagation",
+                                                          "prepare_s")},
+                         "link": {k: r["ranks"][0]["link"][k] for k in (
+                             "stats", "epoch_s", "graph_build_s", "launches")},
+                         "step_ms": {n: {p: ph["step_ms"] for p, ph in run["phases"].items()}
+                                     for n, run in r["ranks"][0]["runs"].items()
+                                     if "phases" in run}}
+               for s, r in results.items()}}
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1875,7 +2322,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     log("== phase 7: link prediction at the ogbl-citation2 shape")
-    linkpred, msg = linkpred_phase(card_name, totals, dev)
+    linkpred, msg, split_edge = linkpred_phase(card_name, totals, dev)
     torch.cuda.empty_cache()
 
     log("== phase 8: the reader, the I2-GTL teacher, multi-seed, checkpoints")
@@ -1884,11 +2331,15 @@ def main() -> int:
 
     log("== phase 9: the self-supervised baselines")
     baselines = baselines_phase(msg, gb, card_name, totals, dev)
-    del msg
     torch.cuda.empty_cache()
 
     log("== phase 10: the row-sharded teacher")
     sharded = sharded_phase(eb, gb, card_name, totals)
+
+    log("== phase 11: the sharded students, LP and C&S, link prediction")
+    students_dist = sharded_students_phase(card_name, totals, split_edge, msg,
+                                           linkpred["bench"]["step_ms"])
+    del split_edge, msg
 
     assert totals["spmm_csr_plain"] == 0, totals
     kernels = [{"name": name, "route": "cuda", "source": SOURCE,
@@ -1898,7 +2349,7 @@ def main() -> int:
                       "student": student, "trick_step_ms": tricks,
                       "propagation": propagation, "linkpred": linkpred,
                       "cli": cli, "baselines": baselines, "sharded": sharded,
-                      "card": card_name}))
+                      "sharded_students": students_dist, "card": card_name}))
     print(card_name)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,13 @@
 """Dataset container and the node-classification preparation pipeline.
 
 The port of ``gnn_tail_generalization_tpu/data/datasets.py``: ``prepare``,
-and ``prepare_sharded`` for one rank of a row-sharded run (``prepare_hier``
-comes with the two-level layout, ROADMAP A12b). Reference parity: the reference's ``trainer_node_classification.py``
-(load_data: Planetoid public split with NormalizeFeatures, the Cora
-first-600-train special split, symmetrize + de/re-self-loop edge pipeline) and
-``utils.py:680-752`` (degree analysis + isolation crafting).
+and ``prepare_sharded`` for one rank of a row-sharded run, which every
+``train_which`` trains on (``prepare_hier`` and the 2-D graph x model mesh
+come with the two-level layout, ROADMAP A12b items 4-5). Reference parity:
+the reference's ``trainer_node_classification.py`` (load_data: Planetoid
+public split with NormalizeFeatures, the Cora first-600-train special split,
+symmetrize + de/re-self-loop edge pipeline) and ``utils.py:680-752`` (degree
+analysis + isolation crafting).
 """
 from __future__ import annotations
 
@@ -121,7 +123,8 @@ def prepare(data: NodeData, cfg: Config, *, spmm_dense_threshold: int = 8192
 
 
 def prepare_sharded(data: NodeData, cfg: Config, comm: Comm, *,
-                    rb: int = 128) -> PreparedData:
+                    rb: int = 128, model_axis: Optional[str] = None
+                    ) -> PreparedData:
     """``prepare`` for rank ``comm.shard`` of a row-sharded run (JAX
     ``data/datasets.py:115-180``): the same chain, the graph a
     ``parallel/distgraph.py:DistGraph`` (with its edge view under
@@ -130,7 +133,11 @@ def prepare_sharded(data: NodeData, cfg: Config, comm: Comm, *,
     False) with this rank's rows kept. ``edge_index``, ``train_idx`` and
     ``test_idx`` stay global host arrays. Padded rows enter no loss, metric
     or aggregation, but they do enter the norms' statistics, as in the JAX
-    package's sharded run."""
+    package's sharded run. ``model_axis`` (the JAX package's 2-D graph x
+    model mesh) is not ported yet and raises."""
+    if model_axis is not None:
+        raise NotImplementedError("the 2-D graph x model mesh (model_axis) is "
+                                  "not ported yet (ROADMAP A12b item 4)")
     n = data.x.shape[0]
     data, test_mask, e, e_crafted, splits = _edges_and_splits(data, cfg)
     dg = build_dist_graph(e_crafted, n, comm, rb=rb,

@@ -22,6 +22,18 @@ on the device in one batch, the final partial batch is wrap-filled with the
 wrapped entries masked by ``valid``, and the losses stay on the device
 until one host read per epoch. The JAX package scans the steps in one
 program; here they are eager steps.
+
+Sharded (``train_linkpred(comm=...)``, JAX ``mesh=``): the message graph is
+a ``DistGraph`` and the features and the encoded table are row-sharded over
+the ranks; the predictor's endpoint rows come through ``dist_take_rows``
+(``take_rows``), the same on every rank, in training and in the eval
+chunks. The parameters are replicated. Every rank computes the whole loss,
+and since the backward of ``dist_take_rows`` sums over the ranks, the loss
+enters each rank's backward divided by S, and the replicated gradients are
+summed over the ranks (``sum_replicated_grads``) before the clip, so that
+the clip sees the global gradient. The permutation, the negatives and the
+predictor's dropout come from streams seeded alike on every rank; the
+encoder's dropout over the rank's rows from a stream of the rank's own.
 """
 from __future__ import annotations
 
@@ -35,6 +47,9 @@ from torch import nn
 
 from ..graph.core import (Graph, add_self_loops, build_graph, edge_rows,
                           gcn_norm_weights, remove_self_loops, symmetrize)
+from ..parallel.comm import Comm
+from ..parallel.distgraph import (DistGraph, build_dist_graph, comm_of,
+                                  dist_take_rows, sum_replicated_grads)
 from ..utils.device import resolve_device
 from . import losses as L
 from . import metrics as M
@@ -235,14 +250,28 @@ def clip_by_global_norm(params: Iterable[nn.Parameter], max_norm: float
         g.mul_(scale)
 
 
+def take_rows(g, h: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows ``idx`` of the encoded table ``h``: ``h[idx]`` on one device;
+    on a ``DistGraph`` (``h`` the rank's rows) ``dist_take_rows``."""
+    if isinstance(g, DistGraph):
+        return dist_take_rows(g, h, idx)
+    return h[idx]
+
+
 def make_loss_fn(cfg: LinkPredConfig, model: LinkPredModel):
+    """The train loss of a batch. ``const["encoder_generator"]``, where
+    given, draws the encoder's dropout (a rank's own stream); else
+    ``generator`` draws it."""
     def loss_fn(const, pos_edge, neg_edge, generator, valid):
-        h = model.encode(const["g"], const["x"], agg0=const.get("agg0"),
-                         generator=generator)
-        pos_out = model.predict_pairs(h[pos_edge[:, 0]], h[pos_edge[:, 1]],
+        g = const["g"]
+        h = model.encode(g, const["x"], agg0=const.get("agg0"),
+                         generator=const.get("encoder_generator") or generator)
+        pos_out = model.predict_pairs(take_rows(g, h, pos_edge[:, 0]),
+                                      take_rows(g, h, pos_edge[:, 1]),
                                       generator=generator)
         neg = neg_edge.reshape(-1, 2)
-        neg_out = model.predict_pairs(h[neg[:, 0]], h[neg[:, 1]],
+        neg_out = model.predict_pairs(take_rows(g, h, neg[:, 0]),
+                                      take_rows(g, h, neg[:, 1]),
                                       generator=generator)
         return compute_loss(cfg, pos_out, neg_out, valid=valid)
 
@@ -252,14 +281,20 @@ def make_loss_fn(cfg: LinkPredConfig, model: LinkPredModel):
 def make_train_step(cfg: LinkPredConfig, model: LinkPredModel,
                     optimizer: torch.optim.Optimizer):
     """One train-mode step: loss, backward, clipping, the optimizer update.
-    Returns the loss as a device scalar (no host sync)."""
+    Returns the loss as a device scalar (no host sync). On a ``DistGraph``
+    the gradient rule of the module docstring."""
     loss_fn = make_loss_fn(cfg, model)
     params = list(model.parameters())
 
     def step(const, pos_edge, neg_edge, generator, valid):
         optimizer.zero_grad(set_to_none=True)
         loss = loss_fn(const, pos_edge, neg_edge, generator, valid)
-        loss.backward()
+        comm = comm_of(const["g"])
+        if comm is None:
+            loss.backward()
+        else:
+            (loss / comm.world_size).backward()
+            sum_replicated_grads(model, comm)
         if cfg.grad_clip_norm >= 0:
             clip_by_global_norm(params, cfg.grad_clip_norm)
         optimizer.step()
@@ -305,18 +340,57 @@ def make_epoch_fn(cfg: LinkPredConfig, model: LinkPredModel,
     return epoch
 
 
+def _message_edges(cfg: LinkPredConfig, msg_edges: np.ndarray, n_node: int):
+    """(edges, weights or None) of the message graph: GCN with self loops
+    and D^-1/2 A D^-1/2 weights."""
+    if cfg.encoder.upper() != "GCN":
+        return msg_edges, None
+    e_msg = add_self_loops(remove_self_loops(msg_edges), n_node)
+    return e_msg, gcn_norm_weights(e_msg, n_node)
+
+
 def link_graph(cfg: LinkPredConfig, msg_edges: np.ndarray, n_node: int
                ) -> Graph:
     """The message-passing graph as the JAX package builds it: a dense
     adjacency up to 4096 nodes, Pallas plans (here: ``has_plans``, so
-    ``pallas_bf16`` runs the bf16 kernel) above; GCN with self loops and
-    D^-1/2 A D^-1/2 weights."""
-    e_msg, w_msg = msg_edges, None
-    if cfg.encoder.upper() == "GCN":
-        e_msg = add_self_loops(remove_self_loops(msg_edges), n_node)
-        w_msg = gcn_norm_weights(e_msg, n_node)
+    ``pallas_bf16`` runs the bf16 kernel) above."""
+    e_msg, w_msg = _message_edges(cfg, msg_edges, n_node)
     return build_graph(e_msg, n_node, edge_weight=w_msg,
                        with_dense=n_node <= 4096, with_plans=n_node > 4096)
+
+
+def link_dist_graph(cfg: LinkPredConfig, msg_edges: np.ndarray, n_node: int,
+                    comm: Comm, rb: int = 128) -> DistGraph:
+    """Rank ``comm.shard``'s ``DistGraph`` of the message graph (on the
+    CPU)."""
+    e_msg, w_msg = _message_edges(cfg, msg_edges, n_node)
+    return build_dist_graph(e_msg, n_node, comm, w_msg, rb=rb)
+
+
+def check_shardable(cfg: LinkPredConfig) -> None:
+    """Raises ``ValueError`` for a config the sharded trainer does not run
+    (the JAX package asserts the same, ``model.py:416-424``)."""
+    if not cfg.use_node_feats or cfg.train_node_emb:
+        raise ValueError("sharded link prediction runs on raw features "
+                         "(use_node_feats=True, train_node_emb=False): a trainable "
+                         "node embedding would need its own row sharding")
+    if cfg.encoder.upper() in ("TRANSFORMER", "MLP"):
+        raise ValueError(f"sharded link prediction takes a conv encoder, not "
+                         f"{cfg.encoder}")
+    if cfg.edge_lp_mode:
+        raise ValueError("sharded link prediction has no edge-LP mode: the "
+                         "edge-LP modes walk the edge arrays")
+
+
+def shard_rows(x, g: DistGraph, device) -> torch.Tensor:
+    """The rank's ``[rows_per_shard, F]`` rows of ``x`` [n_node, F] padded
+    with zero rows to ``n_node_pad``."""
+    x = torch.as_tensor(x, dtype=torch.float32)
+    out = torch.zeros(g.rows_per_shard, x.shape[1], device=device)
+    hi = min(g.row0 + g.rows_per_shard, g.n_node)
+    if hi > g.row0:
+        out[:hi - g.row0] = x[g.row0:hi].to(device)
+    return out
 
 
 def link_const(cfg: LinkPredConfig, g: Graph, x: torch.Tensor
@@ -382,7 +456,8 @@ def train_linkpred(
     msg_edges: Optional[np.ndarray] = None,
     max_steps_per_epoch: Optional[int] = None,
     device_epoch: bool = True,
-    mesh=None,
+    comm: Optional[Comm] = None,
+    dist_rb: int = 128,
     *,
     device="cuda",
 ) -> Dict[str, Any]:
@@ -396,12 +471,20 @@ def train_linkpred(
     from a generator seeded ``seed + 1000 r`` and trains from one seeded
     ``seed + 1000 r + 1``, both on ``device``. The result also holds
     ``epoch_s``, each epoch's seconds up to its host read of the losses,
-    and ``epoch_loss``, each epoch's mean train loss.
-    ``mesh`` (the sharded trainer) is not ported."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded link prediction (mesh=) is not ported yet (ROADMAP A12b)")
+    ``epoch_loss``, each epoch's mean train loss, and ``graph_build_s``,
+    the host seconds of the message graph's build.
+
+    ``comm``: this rank's communicator; every rank calls this with the same
+    arguments and ``device`` of the rank's type (it runs on the rank's
+    device), and the message graph is cut into shards of ``dist_rb``-row
+    multiples (module docstring; ``check_shardable`` names the configs
+    it refuses). The stats are the same on every rank; ``params`` is the
+    replicated state."""
     device = resolve_device(device)
+    if comm is not None:
+        if device.type != comm.device.type:
+            raise ValueError(f"device {device} for a rank on {comm.device}")
+        device = comm.device
     if split_edge is None:
         split_edge, msg_edges = simple_split_edges(edge_index, n_node,
                                                    seed=seed)
@@ -411,9 +494,22 @@ def train_linkpred(
     if cfg.encoder in ("CN", "AA", "PPR"):
         return _heuristic_run(cfg, split_edge, msg_edges, n_node)
 
-    g = link_graph(cfg, msg_edges, n_node).to(device)
-    xd = (torch.zeros(n_node, 1, device=device) if x is None
-          else torch.as_tensor(x, dtype=torch.float32, device=device))
+    t0 = time.perf_counter()
+    if comm is None:
+        g = link_graph(cfg, msg_edges, n_node)
+    else:
+        check_shardable(cfg)
+        if x is None:
+            raise ValueError("sharded link prediction needs the features x")
+        g = link_dist_graph(cfg, msg_edges, n_node, comm, rb=dist_rb)
+    graph_build_s = time.perf_counter() - t0
+    g = g.to(device)
+    if comm is not None:
+        xd = shard_rows(x, g, device)
+    elif x is None:
+        xd = torch.zeros(n_node, 1, device=device)
+    else:
+        xd = torch.as_tensor(x, dtype=torch.float32, device=device)
     const = link_const(cfg, g, xd)
 
     pos_train = np.asarray(split_edge["train"]["edge"])
@@ -436,6 +532,9 @@ def train_linkpred(
     for run in range(runs):
         init_gen = torch.Generator(device=device).manual_seed(seed + 1000 * run)
         gen = torch.Generator(device=device).manual_seed(seed + 1000 * run + 1)
+        if comm is not None:
+            const["encoder_generator"] = torch.Generator(device=device).manual_seed(
+                seed + 1000 * run + 2 + (comm.shard << 32))
         with torch.device(device):
             model = LinkPredModel(cfg, n_node, xd.shape[1], generator=init_gen)
         optimizer = make_optimizer(cfg, model.parameters())
@@ -465,14 +564,14 @@ def train_linkpred(
                 vals = results[key]
                 logger.add_result(run, vals[-2:])
                 results_last = results
-                if log_every:
+                if log_every and (comm is None or comm.rank == 0):
                     print(f"run {run} ep {epoch}: "
                           f"loss={total_loss / max(nb, 1):.4f} {key}={vals}")
 
     return {"logger": logger, "stats": logger.statistics(),
             "last_results": results_last, "params": model.state_dict(),
             "split_edge": split_edge, "epoch_s": epoch_s,
-            "epoch_loss": epoch_loss}
+            "epoch_loss": epoch_loss, "graph_build_s": graph_build_s}
 
 
 def _host_loop_epoch(cfg, step, const, pos_all, keys, gen, n_node, n_pos,
@@ -519,17 +618,19 @@ def _host_loop_epoch(cfg, step, const, pos_all, keys, gen, n_node, n_pos,
 
 
 def encode_all(model: LinkPredModel, const) -> torch.Tensor:
-    """The eval-mode encode of every node."""
+    """The eval-mode encode of every node (a rank's rows on a
+    ``DistGraph``)."""
     return model.encode(const["g"], const["x"], agg0=const.get("agg0"))
 
 
 def predict_chunked(model: LinkPredModel, h: torch.Tensor, edges,
-                    chunk: int = 64 * 1024) -> torch.Tensor:
+                    chunk: int = 64 * 1024, g=None) -> torch.Tensor:
     """batch_predict (model.py:172-185): the scores of ``edges`` [m, 2] (a
     numpy array or a tensor) in chunks of ``chunk`` pairs, so no [m, d]
-    endpoint gather is materialised at once."""
+    endpoint gather is materialised at once. ``g``: the graph ``h`` was
+    encoded on (``take_rows``)."""
     edges = torch.as_tensor(edges, device=h.device).long()
-    outs = [model.predict_pairs(h[e[:, 0]], h[e[:, 1]])
+    outs = [model.predict_pairs(take_rows(g, h, e[:, 0]), take_rows(g, h, e[:, 1]))
             for e in torch.split(edges, chunk)]
     return torch.cat(outs) if outs else h.new_zeros(0)
 
@@ -543,7 +644,7 @@ def evaluate(cfg: LinkPredConfig, model: LinkPredModel, const,
         h_eval = encode_all(model, const)
 
         def scores(edges):
-            return predict_chunked(model, h_eval, edges)
+            return predict_chunked(model, h_eval, edges, g=const["g"])
 
         pos_val = scores(split_edge["valid"]["edge"])
         neg_val = scores(split_edge["valid"]["edge_neg"])

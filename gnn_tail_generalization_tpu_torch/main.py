@@ -15,15 +15,18 @@ TeacherGNN goes through ``train/multiseed.py``; ``--prog`` resumes a batch
 grid through ``utils/records.py:TensorRex``, and ``--records_path`` /
 ``--records_desc`` save each column's curves.
 
-``--n_devices=S`` trains the TeacherGNN row-sharded over S ranks
-(``parallel/``): S local processes started by ``parallel/launch.py``, or,
-when ``WORLD_SIZE`` is set, the processes torchrun started. The collectives
-go over NCCL when every rank has a card of its own, over gloo with
-``--dist_transport=gloo`` (host-staged, so several ranks may share one
-card; NCCL refuses two ranks on one card) and on the CPU. Rank 0 prints the
-lines a one-device run prints; seeds run one after another. The other
-``--train_which`` values, link prediction and ``--hier_mesh`` under sharding
-are not ported yet (ROADMAP A12b).
+``--n_devices=S`` runs ``--train_which`` row-sharded over S ranks
+(``parallel/``; every value: TeacherGNN, SEMLP, StudentBaseMLP, GraphMLP,
+LP, and the I2-GTL teacher): S local processes started by
+``parallel/launch.py``, or, when ``WORLD_SIZE`` is set, the processes
+torchrun started. The collectives go over NCCL when every rank has a card
+of its own, over gloo with ``--dist_transport=gloo`` (host-staged, so
+several ranks may share one card; NCCL refuses two ranks on one card) and
+on the CPU. Rank 0 prints the lines a one-device run prints; seeds run one
+after another. Link
+prediction (``--exp_mode=I2_GTL --task=linkp``) is not sharded here, as in
+the JAX CLI; ``linkpred/model.py:train_linkpred(comm=...)`` shards it.
+``--hier_mesh`` is not ported yet (ROADMAP A12b).
 
 Usage:
   python -m gnn_tail_generalization_tpu_torch.main --dataset=ogbn-arxiv \
@@ -33,6 +36,8 @@ Usage:
   python -m gnn_tail_generalization_tpu_torch.main --dataset=ogbn-arxiv \
       --n_devices=2 --epochs=3 --device=cuda       # add --dist_transport=gloo
                                                     # on a host with one card
+  python -m gnn_tail_generalization_tpu_torch.main --dataset=TEXAS \
+      --train_which=SEMLP --n_devices=4 --epochs=2 --device=cpu
   torchrun --nproc_per_node=4 -m gnn_tail_generalization_tpu_torch.main \
       --dataset=ogbn-arxiv --epochs=3
 """
@@ -83,15 +88,16 @@ def parse_args(argv: Optional[List[str]] = None):
                              "bitwise-identical across block sizes; here "
                              "each epoch is one eager step")
     parser.add_argument("--n_devices", type=int, default=1,
-                        help="row shards of the TeacherGNN, one local process "
-                             "each (under torchrun: its WORLD_SIZE)")
+                        help="row shards of the run, one local process each "
+                             "(under torchrun: its WORLD_SIZE)")
     parser.add_argument("--dist_transport", choices=TRANSPORTS, default=None,
                         help="collectives of a sharded run: nccl (one card a "
                              "rank; the default on the card) or gloo (staged "
                              "through the host, so ranks may share a card; "
                              "the CPU's)")
     parser.add_argument("--hier_mesh", type=str, default=None,
-                        help="not ported yet (ROADMAP A12b)")
+                        help="the two-level (host x card) layout: not ported "
+                             "yet (ROADMAP A12b)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device to train on (cuda or cpu)")
     ns = parser.parse_args(argv)
@@ -113,18 +119,22 @@ def _sharded(ns) -> bool:
     return ns.n_devices > 1 or _torchrun_world() > 1
 
 
+SHARDED_TRAIN_WHICH = ("TeacherGNN", "SEMLP", "StudentBaseMLP", "GraphMLP", "LP")
+
+
 def _check_supported(cfg: Config, ns) -> None:
     if ns.hier_mesh:
         raise NotImplementedError("--hier_mesh: the two-level (host x card) "
                                   "layout is not ported yet (ROADMAP A12b)")
     if not _sharded(ns):
         return
-    if cfg.train_which != "TeacherGNN" or (cfg.exp_mode == "I2_GTL"
-                                           and cfg.task != "nodeC"):
-        raise NotImplementedError(
-            f"--n_devices>1 trains the TeacherGNN; sharded {cfg.train_which} "
-            f"(exp_mode={cfg.exp_mode}, task={cfg.task}) is not ported yet "
-            f"(ROADMAP A12b)")
+    if cfg.exp_mode == "I2_GTL" and cfg.task != "nodeC":
+        raise ValueError("--n_devices>1 does not shard link prediction on the "
+                         "CLI (nor does the JAX CLI); call linkpred/model.py:"
+                         "train_linkpred(comm=...) on each rank")
+    if cfg.train_which not in SHARDED_TRAIN_WHICH:
+        raise ValueError(f"--n_devices>1 runs train_which in {SHARDED_TRAIN_WHICH}, "
+                         f"not {cfg.train_which!r}")
     if _torchrun_world() > 1 and ns.n_devices not in (1, _torchrun_world()):
         raise ValueError(f"--n_devices={ns.n_devices} under torchrun's "
                          f"WORLD_SIZE={_torchrun_world()}")
@@ -279,6 +289,8 @@ def _run(cfg: Config, overrides: dict, ns, device, comm: Optional[Comm] = None
                                  log_every=ns.log_every, device=device)
             results.append(res)
             if isinstance(res, dict):  # pure LP
+                if not say:
+                    return results
                 print(json.dumps(res))
                 if rex is not None:
                     rex.record(cell, list(res.values()))

@@ -22,7 +22,7 @@ Train mode (``self.training``) draws dropout from the forward's
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 from torch import nn
@@ -65,12 +65,17 @@ class SEMLPPart1(nn.Module):
 class SEMLPPart2(nn.Module):
     """Classifier over [x, virtual neighbourhood, part1_out]
     (MLP_model/__init__.py:101-138). ``se_dim``: the width of the SE table
-    (unused when ``SEMLP__downgrade_to_MLP``)."""
+    (unused when ``SEMLP__downgrade_to_MLP``). ``replace_fn(le_guess,
+    teacher_se, top_k)``: the latent-neighbour op, by default
+    ``latent_neighbor_replace``; on a rank of a sharded run the sharded op
+    over the rank's rows of the table."""
 
     def __init__(self, cfg: Config, se_dim: int,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 replace_fn: Optional[Callable] = None):
         super().__init__()
         self.cfg = cfg
+        self.replace_fn = replace_fn or latent_neighbor_replace
         in_feats = cfg.num_feats
         if cfg.SEMLP__downgrade_to_MLP:
             self.register_parameter("alphas", None)
@@ -90,13 +95,14 @@ class SEMLPPart2(nn.Module):
                 teacher_se: Optional[torch.Tensor], *,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """``part1_out``: part 1's raw output for the batch; ``teacher_se``:
-        the [N, se_dim] table. Both are ignored when downgraded to an MLP."""
+        the [N, se_dim] table (a rank's rows under a sharded ``replace_fn``).
+        Both are ignored when downgraded to an MLP."""
         c = self.cfg
         if c.SEMLP__downgrade_to_MLP:
             part2_in = x
         else:
             p1 = part1_out.detach() * self.alphas[0]
-            replaced = latent_neighbor_replace(
+            replaced = self.replace_fn(
                 p1.detach(), teacher_se, c.SEMLP_topK_2_replace) * self.alphas[1]
             parts = [x, replaced, p1] if c.SEMLP__include_part1out else [x, replaced]
             part2_in = torch.cat(parts, dim=-1)

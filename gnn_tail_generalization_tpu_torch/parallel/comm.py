@@ -23,6 +23,9 @@ back. The collectives:
   cross-shard norms, the SE regulariser and ``dist_take_rows``.
 - ``all_reduce_sum_(t)``: the same in place, outside autograd (gradients,
   metrics).
+- ``all_gather(t)``: every shard's ``t``, stacked in shard order into
+  ``[S, *t.shape]`` (``all_gather_into_tensor`` over NCCL), outside
+  autograd: the sharded latent-neighbour op's candidates.
 
 Shard ``s`` is the rank at position ``s`` of ``order`` (default: rank order);
 ``parallel/multihost.py`` gives an order that keeps ring neighbours on one
@@ -53,7 +56,8 @@ class Comm:
         # pinned host buffers of the gloo transport, by (role, shape, dtype)
         self._host: Dict[Tuple, torch.Tensor] = {}
         #: collectives started, and ring buckets that had no edge to launch on
-        self.counts = {"ring_shifts": 0, "all_reduces": 0, "skipped_buckets": 0}
+        self.counts = {"ring_shifts": 0, "all_reduces": 0, "all_gathers": 0,
+                       "skipped_buckets": 0}
 
     @property
     def staged(self) -> bool:
@@ -81,6 +85,28 @@ class Comm:
         dist.all_reduce(h)
         t.copy_(h)
         return t
+
+    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """``[S, *t.shape]``: position ``s`` holds shard ``s``'s ``t``."""
+        t = t.contiguous()
+        if self.world_size == 1:
+            return t.unsqueeze(0).clone()
+        self.counts["all_gathers"] += 1
+        shape = (self.world_size,) + tuple(t.shape)
+        if self.transport == "nccl":
+            out = torch.empty(shape, dtype=t.dtype, device=t.device)
+            dist.all_gather_into_tensor(out, t)
+        else:
+            send, recv = t, torch.empty(shape, dtype=t.dtype)
+            if self.staged:
+                send = self._host_buffer("gather", t)
+                send.copy_(t)  # waits for the card
+                recv = self._host_buffer("gathered", recv)
+            dist.all_gather(list(recv.unbind(0)), send)
+            out = recv.to(t.device, copy=True)  # the host buffer is reused
+        if self.order != sorted(self.order):  # rank order -> shard order
+            out = out[torch.tensor(self.order, device=out.device)]
+        return out
 
     def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
         """The sum of ``t`` over the ranks, differentiable."""

@@ -333,6 +333,19 @@ def shard_state_dict(state: Mapping[str, torch.Tensor], shard: int,
     return out
 
 
+def sum_replicated_grads(model: torch.nn.Module, comm: Comm) -> None:
+    """Sums the gradients of the replicated parameters over the ranks, in
+    one all-reduce of their concatenation; the row-sharded ones stay the
+    rank's own. The optimizer then steps alike on every rank."""
+    grads = [p.grad for name, p in model.named_parameters()
+             if p.grad is not None and not is_row_sharded(name)]
+    if not grads:
+        return
+    flat = comm.all_reduce_sum_(torch.cat([t.reshape(-1) for t in grads]))
+    for t, part in zip(grads, flat.split([t.numel() for t in grads])):
+        t.copy_(part.view_as(t))
+
+
 def comm_volume_stats(edge_index: np.ndarray, n_node: int, n_shards: int,
                       d_feat: int = 128, itemsize: int = 4, rb: int = 128) -> dict:
     """The rows and bytes one ``dist_spmm`` moves around an S-shard ring,

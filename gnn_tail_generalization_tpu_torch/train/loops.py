@@ -23,6 +23,19 @@ accepted and ignored); multi-seed training loops over the seeds
 (``train/multiseed.py``). Random batches and dropout are drawn from one
 ``torch.Generator`` per phase, seeded from ``seed`` (the teacher's
 graph-dropout masks and edgewise pairs from one more each).
+
+Sharded (``data`` from ``data/datasets.py:prepare_sharded``, one rank's
+rows and its ``DistGraph``): every phase runs, each rank calling it with the
+same arguments. The teacher as ``train_teacher`` says. The students' and
+part 1's parameters are replicated and so is every batch: ``make_take_rows``
+gathers the batch's rows of ``x``, the SE table, the labels and the masks
+from their owners (``dist_take_rows``), the same rows on every rank. So the
+batches and the dropout masks come from streams seeded alike on every rank,
+each rank computes the whole loss, and no gradient is summed (``x`` and the
+SE table are constants): the parameters stay equal across the ranks. Part 2
+finds the latent neighbours in the row-sharded SE table
+(``ops/topk_attention.py:dist_latent_replace``); ``run_pure_lp`` propagates
+on a sharded DAD adjacency.
 """
 from __future__ import annotations
 
@@ -42,9 +55,9 @@ from ..graph.core import Graph, add_self_loops, loss_masked_view, remove_self_lo
 from ..models.semlp import GraphMLP, SEMLPPart1, SEMLPPart2, neighbor_contrastive_loss
 from ..models.teacher import TeacherGNN
 from ..nn.norms import norm_applies
-from ..parallel.comm import Comm
-from ..parallel.distgraph import (DistGraph, build_dist_graph, is_row_sharded,
-                                  shard_state_dict)
+from ..ops.topk_attention import dist_latent_replace
+from ..parallel.distgraph import (DistGraph, build_dist_graph, dist_take_rows,
+                                  shard_state_dict, sum_replicated_grads)
 from ..propagation import correlation as corr
 from ..utils.device import resolve_device
 from .evalutil import headtail_accuracies, masked_accuracy
@@ -132,6 +145,54 @@ def final_agg_view(cfg: Config, data: PreparedData
     return loss_masked_view(g, e, m)
 
 
+def _dist_graph_of(data: PreparedData) -> Optional[DistGraph]:
+    """The ``DistGraph`` of data from ``prepare_sharded``, else None."""
+    return data.graph if isinstance(data.graph, DistGraph) else None
+
+
+def _n_global(data: PreparedData) -> int:
+    """The graph's node count (a rank's data holds only its rows)."""
+    dg = _dist_graph_of(data)
+    return data.n_node if dg is None else dg.n_node
+
+
+def _rank_device(device, g: Optional[DistGraph]) -> torch.device:
+    """``device`` resolved; on a rank (``g`` a ``DistGraph``) the rank's
+    device, which must be of ``device``'s type."""
+    device = resolve_device(device)
+    if g is None:
+        return device
+    if device.type != g.comm.device.type:
+        raise ValueError(f"device {device} for a rank on {g.comm.device}")
+    return g.comm.device
+
+
+def log_here(g: Optional[DistGraph], log_every: int, epoch: int) -> bool:
+    """Whether to print epoch ``epoch``'s line: every ``log_every``
+    epochs, on rank 0 of a sharded run."""
+    return bool(log_every) and epoch % log_every == 0 and (
+        g is None or g.comm.rank == 0)
+
+
+def make_take_rows(g: Optional[DistGraph]):
+    """``take(arr, idx)``, the students' batch gather (JAX ``loops.py:
+    _make_take_rows``): ``arr[idx]`` on one device; on a rank of a sharded
+    run (``g``) the rows ``idx`` (global ids) of the rank-sharded ``arr``
+    through ``dist_take_rows``, one all-reduce of ``[len(idx), d]``, the
+    same on every rank. A 1-D ``arr`` (labels, masks) goes as an ``[N, 1]``
+    f32 column, and a bool one comes back as ``> 0.5``."""
+    if g is None:
+        return lambda arr, idx: arr[idx]
+
+    def take(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        if arr.dim() == 1:
+            out = dist_take_rows(g, arr.float()[:, None], idx)[:, 0]
+            return out > 0.5 if arr.dtype == torch.bool else out.to(arr.dtype)
+        return dist_take_rows(g, arr, idx)
+
+    return take
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -164,19 +225,6 @@ def _teacher_model(cfg: Config, seed: int, init_state: Optional[Mapping[str, Any
     model.load_state_dict({k: torch.as_tensor(v).clone() for k, v in init_state.items()},
                           assign=True)
     return model
-
-
-def sum_replicated_grads(model: torch.nn.Module, comm: Comm) -> None:
-    """Sums the gradients of the replicated parameters over the ranks, in
-    one all-reduce of their concatenation; the row-sharded ones stay the
-    rank's own. Adam then steps alike on every rank."""
-    grads = [p.grad for name, p in model.named_parameters()
-             if p.grad is not None and not is_row_sharded(name)]
-    if not grads:
-        return
-    flat = comm.all_reduce_sum_(torch.cat([t.reshape(-1) for t in grads]))
-    for t, part in zip(grads, flat.split([t.numel() for t in grads])):
-        t.copy_(part.view_as(t))
 
 
 def teacher_step_grads(cfg: Config, model: TeacherGNN, g: Union[Graph, DistGraph],
@@ -249,19 +297,12 @@ def train_teacher(
     records are global and the same on every rank, rank 0 logs, dropout
     draws from a stream of each rank's own, and graph-dropout masks and
     edgewise pairs from streams seeded alike on every rank. ``init_state``
-    is then the rank's state; ``save_dir`` is not ported there (A12b)."""
+    is then the rank's state; ``save_dir`` writes the sharded checkpoint
+    directories beside the one-device paths (``train/checkpoint.py``)."""
     epochs = cfg.epochs if epochs is None else epochs
-    device = resolve_device(device)
-    dist_g = data.graph if isinstance(data.graph, DistGraph) else None
+    dist_g = _dist_graph_of(data)
     comm = None if dist_g is None else dist_g.comm
-    if comm is not None:
-        if device.type != comm.device.type:
-            raise ValueError(f"device {device} for a rank on {comm.device}")
-        device = comm.device
-        if save_dir:
-            raise NotImplementedError("save_dir under sharding: the sharded "
-                                      "checkpoint pair is not ported yet "
-                                      "(ROADMAP A12b)")
+    device = _rank_device(device, dist_g)
 
     model = _teacher_model(cfg, seed, init_state, dist_g).to(device)
     # dropout masks differ between the ranks' rows, as one stream over all
@@ -307,7 +348,6 @@ def train_teacher(
     best_acc, best_state = -1.0, None
     n_train = None if comm is None else comm.all_reduce_sum_(train_mask.float().sum())
     edgewise = None if ew_fn is None else (lambda h: ew_fn(h, pair_gen, "train"))
-    log_here = log_every and (comm is None or comm.rank == 0)
 
     for epoch in range(epochs):
         _sync(device)
@@ -347,18 +387,21 @@ def train_teacher(
             if keep_best:  # state_dict() holds live tensors that Adam updates
                 best_state = {k: v.detach().clone()
                               for k, v in model.state_dict().items()}
-        if log_here and epoch % log_every == 0:
+        if log_here(dist_g, log_every, epoch):
             print(f"Ep{epoch:03d} " + " ".join(
                 f"{c}={records[epoch, i]:.2f}" for i, c in enumerate(cols)), flush=True)
 
     final = {k: v.detach() for k, v in model.state_dict().items()}
     if save_dir:
-        from .checkpoint import save_train_state
+        from .checkpoint import ShardLayout, save_train_state
 
-        save_train_state(f"{save_dir}/teacherGNN.pt", params=final, epoch=epochs)
+        layout = (None if dist_g is None else
+                  ShardLayout(comm, dist_g.n_node, dist_g.n_node_pad))
+        save_train_state(f"{save_dir}/teacherGNN.pt", params=final, epoch=epochs,
+                         layout=layout)
         if keep_best and best_state is not None:
             save_train_state(f"{save_dir}/best-teacherGNN.pt", params=best_state,
-                             epoch=epochs)
+                             epoch=epochs, layout=layout)
     return TrainResult(
         columns=cols,
         records=records,
@@ -385,8 +428,15 @@ def collect_teacher_se(cfg: Config, data: PreparedData,
     layer's pre-relu output on the full graph (trainer:87, GCN.py:148-150).
     An eval-mode forward by default; in train mode, with dropout drawn from
     ``generator``, when ``cfg.bug_compat_part1_target_dropout`` is set (the
-    reference's single dropout sample as the part-1 target)."""
-    device = resolve_device(device)
+    reference's single dropout sample as the part-1 target). On a rank of a
+    sharded run (``teacher_state`` the rank's state) the forward goes
+    through the ring and the result is the rank's ``[rows_per_shard,
+    se_dim]`` rows of the padded table; ``dist_latent_replace`` never picks
+    the padded rows."""
+    dg = _dist_graph_of(data)
+    device = _rank_device(device, dg)
+    if dg is not None:
+        cfg = dataclasses.replace(cfg, N_nodes=dg.rows_per_shard)
     with torch.device("meta"):
         model = TeacherGNN(cfg)
     model = _on_device(model, teacher_state, device)
@@ -422,9 +472,13 @@ def train_semlp_part1(
 ) -> TrainResult:
     """SEMLP part 1: regress the teacher's SE rows from the node features,
     MSE on ``min(batch_size, n_train)`` train nodes per step; ``loss_test``
-    is the MSE on a batch drawn from the test nodes after the step."""
+    is the MSE on a batch drawn from the test nodes after the step. Sharded:
+    ``teacher_se`` is the rank's rows (``collect_teacher_se``), the batches
+    come through ``make_take_rows`` and rank 0 logs."""
     epochs = cfg.epochs if epochs is None else epochs
-    device = resolve_device(device)
+    dg = _dist_graph_of(data)
+    device = _rank_device(device, dg)
+    take = make_take_rows(dg)
     se = teacher_se.to(device)
     x = torch.as_tensor(data.x).to(device)
     train_idx = torch.as_tensor(data.train_idx).to(device)
@@ -446,7 +500,7 @@ def train_semlp_part1(
         model.train()
         opt.zero_grad(set_to_none=True)
         bidx = _sample(train_idx, bsz, gen)
-        loss = F.mse_loss(model(x[bidx], generator=gen), se[bidx])
+        loss = F.mse_loss(model(take(x, bidx), generator=gen), take(se, bidx))
         loss.backward()
         opt.step()
         _sync(device)
@@ -455,10 +509,10 @@ def train_semlp_part1(
         model.eval()
         with torch.no_grad():
             tidx = _sample(test_idx, bsz, gen)
-            err = (model(x[tidx]) - se[tidx]) ** 2
+            err = (model(take(x, tidx)) - take(se, tidx)) ** 2
             loss_test = err.sum() / max(err.numel(), 1)  # 0 over no nodes
             records[epoch] = torch.stack([loss.detach(), loss_test]).cpu().numpy()
-        if log_every and epoch % log_every == 0:
+        if log_here(dg, log_every, epoch):
             print(f"p1 Ep{epoch:03d} train/test mse "
                   f"{records[epoch, 0]:.4f}/{records[epoch, 1]:.4f}")
     return TrainResult(
@@ -475,9 +529,10 @@ def train_semlp_part1(
 def _sparse_adj_pow(data: PreparedData, r: int) -> sp.csr_matrix:
     """GraphMLP's A_tilde^r as a scipy CSR (graphUtils.normalize_adj +
     sparse_power, utils.py:1225-1248): self loops replaced, symmetric degree
-    normalisation, r-th power."""
-    e = add_self_loops(remove_self_loops(data.edge_index), data.n_node)
-    n = data.n_node
+    normalisation, r-th power; over the real nodes of a sharded run's graph
+    too (a batch holds no padded row)."""
+    n = _n_global(data)
+    e = add_self_loops(remove_self_loops(data.edge_index), n)
     a = sp.csr_matrix((np.ones(e.shape[1]), (e[0], e[1])), shape=(n, n))
     d = np.asarray(a.sum(axis=1)).reshape(-1)
     dinv = sp.diags(d**-0.5)
@@ -519,9 +574,14 @@ def train_semlp_part2(
     batches; ``acc_test`` on a batch of test nodes, and head/tail/iso as
     forwards on those index subsets, each scored over its non-train nodes.
     ``eval_ms`` of the result holds the head/tail/iso forwards' time per
-    epoch."""
+    epoch. Sharded: every row comes through ``make_take_rows``, the latent
+    neighbours through ``dist_latent_replace`` on the rank's rows of
+    ``teacher_se``, GraphMLP's adjacency power is over the global graph,
+    and rank 0 logs."""
     epochs = cfg.epochs if epochs is None else epochs
-    device = resolve_device(device)
+    dg = _dist_graph_of(data)
+    device = _rank_device(device, dg)
+    take = make_take_rows(dg)
     x = torch.as_tensor(data.x).to(device)
     y = torch.as_tensor(data.y).to(device)
     train_idx = torch.as_tensor(data.train_idx).to(device)
@@ -544,7 +604,7 @@ def train_semlp_part2(
 
     adj_dense = adj_sparse = None
     if is_graphmlp:
-        if data.n_node <= 8192:
+        if _n_global(data) <= 8192:
             adj_dense = torch.from_numpy(
                 _dense_adj_pow(data, cfg.graphMLP_r)).to(device)
         else:
@@ -552,10 +612,15 @@ def train_semlp_part2(
             # [B, B] blocks of the sparse power on the host per step
             adj_sparse = _sparse_adj_pow(data, cfg.graphMLP_r)
 
+    replace_fn = None
+    if dg is not None and se is not None:
+        def replace_fn(le_guess, se_local, top_k):
+            return dist_latent_replace(dg, le_guess, se_local, top_k, dg.n_node,
+                                       dg.rows_per_shard)
     init_gen = torch.Generator().manual_seed(seed + 2)
     model = (GraphMLP(cfg, generator=init_gen) if is_graphmlp else
              SEMLPPart2(cfg, se_dim=0 if se is None else se.shape[1],
-                        generator=init_gen))
+                        generator=init_gen, replace_fn=replace_fn))
     model.to(device)
     gen = torch.Generator(device=device).manual_seed(seed + 2)
     opt = make_optimizer(cfg, model.parameters())
@@ -566,7 +631,7 @@ def train_semlp_part2(
         (trainer:156-158)."""
         model.train(train)
         g = gen if train else None
-        xb = x[idx]
+        xb = take(x, idx)
         if is_graphmlp:
             logits, z = model(xb, generator=g)
             if not train:
@@ -591,8 +656,8 @@ def train_semlp_part2(
         """Forward on the subset, accuracy over its non-train nodes
         (trainer:173-187, eval_headtail__traintest_v2)."""
         logits, _ = forward(idx, train=False)
-        m = ~train_mask[idx]
-        correct = ((logits.argmax(dim=1) == y[idx]) & m).sum()
+        m = ~take(train_mask, idx)
+        correct = ((logits.argmax(dim=1) == take(y, idx)) & m).sum()
         return correct / m.sum().clamp(min=1) * 100.0
 
     s = data.splits
@@ -614,7 +679,7 @@ def train_semlp_part2(
         opt.zero_grad(set_to_none=True)
         bidx = _sample(train_idx, bsz, gen)
         logits, aux = forward(bidx, train=True)
-        loss = F.cross_entropy(logits, y[bidx])
+        loss = F.cross_entropy(logits, take(y, bidx))
         if aux is not None:
             loss = loss + aux
         loss.backward()
@@ -626,7 +691,7 @@ def train_semlp_part2(
             tidx = _sample(test_idx, bsz, gen)
             logits_t, _ = forward(tidx, train=False)
             metrics = {"loss_train": loss.detach(),
-                       "acc_test": masked_accuracy(logits_t, y[tidx]) * 100.0}
+                       "acc_test": masked_accuracy(logits_t, take(y, tidx)) * 100.0}
             _sync(device)
             t0 = time.perf_counter()
             for name, idx in subsets.items():
@@ -635,7 +700,7 @@ def train_semlp_part2(
             eval_ms.append((time.perf_counter() - t0) * 1e3)
             records[epoch] = torch.stack(
                 [metrics[c].float() for c in cols]).cpu().numpy()
-        if log_every and epoch % log_every == 0:
+        if log_here(dg, log_every, epoch):
             print(f"p2 Ep{epoch:03d} " + " ".join(
                 f"{c}={records[epoch, i]:.2f}" for i, c in enumerate(cols)))
     return TrainResult(
@@ -649,18 +714,30 @@ def run_pure_lp(cfg: Config, data: PreparedData, alpha: float = 0.5,
     """trainer:33-63: DAD label propagation from the train labels on
     ``device``; accuracies (x100, rounded to 2 places) over the train nodes
     and over every other node (``~train_mask``, not ``data.test_mask``, as
-    the JAX package's single-device branch)."""
-    device = resolve_device(device)
-    dad, _, _ = corr.gen_normalized_adjs(data.edge_index, data.n_node,
-                                         which={"DAD"})
+    the JAX package's single-device branch). Sharded: the DAD adjacency is
+    a ``DistGraph`` (``gen_normalized_dist_adj``), each rank propagates its
+    rows through the ring, and the accuracies count over every rank; the
+    test accuracy is then over ``data.test_mask``, as the JAX package's
+    sharded branch scores it (``loops.py:866-869``)."""
+    dg = _dist_graph_of(data)
+    device = _rank_device(device, dg)
+    if dg is None:
+        dad = corr.gen_normalized_adjs(data.edge_index, data.n_node,
+                                       which={"DAD"})[0]
+    else:
+        dad = corr.gen_normalized_dist_adj(data.edge_index, dg.n_node, dg.comm,
+                                           "DAD", rb=dg.rb)
     y = torch.as_tensor(data.y, device=device)
     nc = cfg.num_classes or int(data.y.max()) + 1
     out = corr.label_propagation(
         y, torch.as_tensor(data.train_idx, device=device), dad.to(device),
         alpha, num_propagations, nc, spmm_method=cfg.spmm_method)
     train_mask = torch.as_tensor(data.train_mask, device=device)
-    acc_train = masked_accuracy(out, y, train_mask).item() * 100
-    acc_test = masked_accuracy(out, y, ~train_mask).item() * 100
+    test_mask = (~train_mask if dg is None
+                 else torch.as_tensor(data.test_mask, device=device))
+    comm = None if dg is None else dg.comm
+    acc_train = masked_accuracy(out, y, train_mask, comm).item() * 100
+    acc_test = masked_accuracy(out, y, test_mask, comm).item() * 100
     return {"acc_train": round(acc_train, 2), "acc_test": round(acc_test, 2)}
 
 
@@ -670,8 +747,9 @@ def run_experiment(cfg: Config, data: PreparedData, seed: int = 0,
     """The dispatch on ``cfg.train_which`` (trainer_node_classification.py:
     10-30). SEMLP: teacher (best-by-test weights kept) -> SE table -> part 1
     -> part 2; the result is part 2's, with the teacher's and part 1's
-    results under ``extra``. LP returns ``run_pure_lp``'s dict."""
-    device = resolve_device(device)
+    results under ``extra``. LP returns ``run_pure_lp``'s dict. Every
+    phase runs on a rank of a sharded run too (module docstring)."""
+    device = _rank_device(device, _dist_graph_of(data))
     tw = cfg.train_which
     if tw == "TeacherGNN":
         return train_teacher(cfg, data, seed, epochs, log_every, device=device)

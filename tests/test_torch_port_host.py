@@ -414,6 +414,33 @@ h = torch.randn(dg.rows_per_shard, 4)
 assert torch.equal(dist_spmm(masked_dist_graph(dg, torch.ones(dg.edge_view.n_edge)), h),
                    dist_spmm(dg, h))
 assert comm_volume_stats(e60, 60, 2, rb=8)["n_node_pad"] == 64
+from gnn_tail_generalization_tpu_torch.ops.topk_attention import (
+    dist_latent_replace, latent_neighbor_replace)
+from gnn_tail_generalization_tpu_torch.propagation.correlation import (
+    double_correlation_autoscale, gen_normalized_dist_adj)
+one = Comm(0, 1, "cpu", "gloo")
+se64, q = torch.randn(64, 4), torch.randn(5, 4)
+assert torch.allclose(dist_latent_replace(one, q, se64, 2, 60, 64),
+                      latent_neighbor_replace(q, se64[:60], 2))
+dad, ad = (gen_normalized_dist_adj(e60, 60, one, w, rb=8) for w in ("DAD", "AD"))
+y64, idx = torch.randint(0, 3, (64,)), torch.arange(10)
+out = double_correlation_autoscale(y64, torch.rand(64, 3), idx, idx, dad, 0.8, 3, ad,
+                                   0.7, 3, 3)[1]
+assert out.shape == (64, 3) and torch.isfinite(out).all()
+lcfg = lpm.LinkPredConfig(use_node_feats=True, train_node_emb=False, eval_metric="mrr",
+                          batch_size=256, gnn_hidden_channels=8, mlp_hidden_channels=8)
+lp = lpm.train_linkpred(lcfg, g2.x, g2.edge_index, g2.n_node, epochs=1, split_edge=se,
+                        comm=one, dist_rb=8, device="cpu")
+assert np.isfinite(list(lp["stats"].values())).all(), lp["stats"]
+for tw in ("SEMLP", "StudentBaseMLP", "GraphMLP", "LP"):
+    cfg = build_config(dataset="", train_which=tw, N_nodes=80, num_feats=12,
+                       num_classes=3, dim_hidden=8, whetherHasSE="111")
+    pd1 = datasets.prepare_sharded(data, cfg, one, rb=8)
+    res = run_experiment(cfg, pd1, epochs=1, device="cpu")
+    assert np.isfinite(np.array(list(res.values())) if tw == "LP" else res.records).all()
+with tempfile.TemporaryDirectory() as root:
+    loops.train_teacher(cfg, pd1, epochs=1, save_dir=root, device="cpu")
+    assert checkpoint.load_train_state(root + "/teacherGNN.pt")["epoch"] == 1
 assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 print("NO_JAX_OK")
 """

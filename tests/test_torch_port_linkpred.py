@@ -708,10 +708,19 @@ def test_train_linkpred_runs_and_learns(kw):
     assert out["params"]["node_emb"].shape == (n, H)
 
 
-def test_train_linkpred_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="A12"):
-        tlpm.train_linkpred(tlpm.LinkPredConfig(), None, msg_graph(50), 50,
-                            mesh=object(), device="cpu")
+@pytest.mark.parametrize("kw", [dict(), dict(use_node_feats=True, encoder="Transformer",
+                                          train_node_emb=False)],
+                         ids=["node_emb", "Transformer"])
+def test_train_linkpred_refuses_a_mesh(kw):
+    """Sharded (``comm=``, the JAX package's ``mesh=``) link prediction
+    refuses a trainable node embedding (the default config) and the
+    Transformer encoder, as the JAX package asserts."""
+    from gnn_tail_generalization_tpu_torch.parallel.comm import Comm
+
+    x = np.zeros((50, F), np.float32)
+    with pytest.raises(ValueError, match="sharded link prediction"):
+        tlpm.train_linkpred(tlpm.LinkPredConfig(**kw), x, msg_graph(50), 50,
+                            comm=Comm(0, 1, "cpu", "gloo"), device="cpu")
 
 
 def test_i2gtl_cli_prints_the_stats_line():
