@@ -1,7 +1,7 @@
 """Drive the PyTorch port's teacher, trick zoo, Cold Brew student, label
-propagation, link-prediction, self-supervised baseline and row-sharded
-paths (the teacher, the students, LP and C&S, link prediction) on one CUDA
-card.
+propagation, link-prediction, self-supervised baseline, row-sharded (the
+teacher, the students, LP and C&S, link prediction) and two-axis (host x
+card, graph x model) paths on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -166,11 +166,39 @@ Phases (any failure exits non-zero; nothing is caught):
    sharded step through the kernels against the plain versions within the
    larger of 1e-5 and 4x the plain step's own sum-order floor (the plain
    step on the one-device graph). Phase 11's seconds are printed.
+12. the two-axis layouts: (i) in this process, both kernels against the
+   plain version (1e-5 relative) on an intra bucket of the two-level (host
+   2 x card 2) layout, a cross bucket fed the halo host 1 ships to host 0,
+   and a bucket of the 2-D (graph 2 x model 2) mesh at width 128 and 20 (a
+   model shard's columns of d = 256 and of 40 classes), with the ms of
+   each, and each slice's launch bit-equal to those columns of the launch
+   at the whole width (a column's sum follows the schedule alone); then
+   four ranks started by ``parallel/launch.py`` (over NCCL with
+   four cards, else four ranks on the one card over host-staged gloo; the
+   line names it) on phase 3's slice padded to phase 10's 169,472 rows (rb
+   128 on the host x card mesh, 256 on the graph axis), dropout 0: (ii) the
+   teacher on each layout in each of ``DIST_RUNS``, 2 epochs,
+   each rank's launches equal to the rule (``hier_launches``: one a
+   non-empty intra or cross bucket a SpMM; ``expected_dist_launches`` on the
+   graph axis), the records bit-equal across ranks and held to phase 10's
+   S = 1 records by phase 10's rules (under ``pallas_bf16`` the accuracy
+   columns within ``DIST_BF16_FLIPS`` nodes; the nodes moved against phase
+   10's S = 2 records, the 2-D mesh's graph cut, are printed beside them),
+   whole parameters bit-equal on every rank and each column slice on the
+   ranks of its model shard; (iii) one
+   hier step through the kernels against the plain versions within the
+   larger of 1e-5 and 4x the plain step's sum-order floor (a graph built
+   from permuted edges); (iv) ``hier_comm_stats`` at d = 256 (halo rows
+   against the flat ring's) and the ms of a d = 256 SpMM on each layout, of
+   the hier intra ring and of one halo exchange; (v) ``main --hier_mesh=2x2
+   --epochs=2`` prints the one-device columns. Phase 12's seconds are
+   printed.
 
 Prints the kernels' JSON line (launches summed over every phase; phase 7's
 numbers under ``linkpred``, phase 8's under ``cli``, phase 9's under
 ``baselines``, phase 10's under ``sharded``, phase 11's under
-``sharded_students``), then as the last line
+``sharded_students``, phase 12's under ``hier`` and ``mesh_2d``), then as
+the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 import contextlib
@@ -268,6 +296,13 @@ STUDENT_DIST_RUNS = {"SEMLP auto": (SEMLP_ARGS, "auto"),
                      "GraphMLP": (GRAPHMLP_ARXIV_ARGS, "auto"),
                      "LP auto": (LP_ARGS, "auto"),
                      "LP pallas_bf16": (LP_ARGS, "pallas_bf16")}
+# phase 12: the two-axis layouts on four ranks: the two-level (host 2 x card
+# 2) layout at rb = 128 and the 2-D (graph 2 x model 2) mesh at rb = 256 on
+# the graph axis, both padding the slice to phase 10's 169,472 rows
+TWO_AXIS_RB = {"hier": DIST_PAD // 4, "mesh_2d": DIST_PAD // 2}
+TWO_AXIS_EPOCHS, TWO_AXIS_METHODS, TWO_AXIS_REPS = 2, ("auto", "pallas_bf16"), 5
+HIER_CLI_ARGS = ["--dataset=ogbn-arxiv", "--hier_mesh=2x2", "--epochs=2",
+                 "--device=cuda", "--log_every=1"]
 N_PROP = 50  # run_pure_lp's propagations
 LINK_EVAL_POS, LINK_STEPS = 1024, 2  # the sharded link runs' eval split, steps an epoch
 
@@ -1703,8 +1738,16 @@ def dist_rank(comm, argv: list) -> dict:
     return out
 
 
-def sharded_phase(edges: np.ndarray, gb, card_name: str, totals: dict) -> dict:
-    """Phase 10: the row-sharded teacher (``parallel/``) on the card."""
+def flipped_nodes(a: np.ndarray, b: np.ndarray, n_sets: np.ndarray) -> np.ndarray:
+    """[epochs, columns]: the nodes whose argmax moved between two teacher
+    records (their accuracy columns, in percent of ``n_sets`` nodes)."""
+    return np.abs(a - b)[:, 1:] * n_sets / 100
+
+
+def sharded_phase(edges: np.ndarray, gb, card_name: str, totals: dict) -> tuple:
+    """Phase 10: the row-sharded teacher (``parallel/``) on the card. Returns
+    its summary, and what phase 12 is held to: the S = 1 and S = 2 records
+    of each run and the node counts behind each accuracy column."""
     from gnn_tail_generalization_tpu_torch import main as port_main
     from gnn_tail_generalization_tpu_torch.parallel.distgraph import comm_volume_stats
     from gnn_tail_generalization_tpu_torch.parallel.launch import spawn
@@ -1780,7 +1823,7 @@ def sharded_phase(edges: np.ndarray, gb, card_name: str, totals: dict) -> dict:
     flipped = {}
     for m in DIST_RUNS:
         a, b = records[1][m], records[2][m]
-        flips = np.abs(a - b)[:, 1:] * n_sets / 100  # nodes whose argmax moved
+        flips = flipped_nodes(a, b, n_sets)
         flipped[m] = flips.max(axis=0).tolist()
         log(f"  records S = 1 vs S = 2 ({m}): max |diff| {np.abs(a - b).max():.3e}, "
             f"loss rel {np.abs(a[:, 0] - b[:, 0]).max() / np.abs(a[:, 0]).max():.3e}, "
@@ -1810,8 +1853,9 @@ def sharded_phase(edges: np.ndarray, gb, card_name: str, totals: dict) -> dict:
     phase_s = time.perf_counter() - t_phase
     log(f"  cli: {cli_s:.1f} s, records {np.round(rec[-1], 4).tolist()}")
     log(f"  phase 10: {phase_s:.1f} s")
-    return {"phase_s": phase_s, "buckets": buckets, "runs": runs,
-            "flipped_nodes": flipped, "comm_volume": stats, "cli_s": cli_s}
+    return ({"phase_s": phase_s, "buckets": buckets, "runs": runs,
+             "flipped_nodes": flipped, "comm_volume": stats, "cli_s": cli_s},
+            {"records": records, "n_sets": n_sets})
 
 def student_dist_launches(name: str, cfg, g, g_last, dad) -> dict:
     """A rank's SpMM launches in phase 11's run ``name``: SEMLP's teacher as
@@ -2201,6 +2245,291 @@ def sharded_students_phase(card_name: str, totals: dict, split_edge, msg,
                for s, r in results.items()}}
 
 
+def two_axis_buckets(edges: np.ndarray, n: int, card_name: str) -> dict:
+    """Phase 12 (i) and (iv), in this process (the layouts as one rank sees
+    them, no process group): both kernels against the plain version (1e-5
+    relative) on an intra hier bucket (rank (0, 0), its host's other card),
+    a cross hier bucket whose table is the halo host 1 ships to host 0
+    (assembled from host 1's list, pads zero), and a 2-D bucket (graph shard
+    0 of 2, source shard 1) at width 128 (a model shard's half of d = 256)
+    and 20 (its half of 40 classes), with each launch's ms; and
+    ``hier_comm_stats`` at d = 256."""
+    from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
+    from gnn_tail_generalization_tpu_torch.parallel.comm import Comm
+    from gnn_tail_generalization_tpu_torch.parallel.distgraph import build_dist_graph
+    from gnn_tail_generalization_tpu_torch.parallel.hier import (build_hier_graph,
+                                                                 hier_comm_stats)
+    from gnn_tail_generalization_tpu_torch.parallel.mesh import HOST_CHIP, DeviceMesh
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    h00, h10 = (build_hier_graph(edges, n, DeviceMesh.layout((2, 2), HOST_CHIP, p),
+                                 rb=TWO_AXIS_RB["hier"]) for p in (0, 2))
+    d0 = build_dist_graph(edges, n, Comm(0, 2, dev, "nccl"), rb=TWO_AXIS_RB["mesh_2d"])
+    build_s = time.perf_counter() - t0
+    gen = torch.Generator(device=dev).manual_seed(12)
+    x = torch.zeros(h00.n_node_pad, 256, device=dev)
+    x[:n] = torch.randn(n, 256, generator=gen, device=dev)
+    rows, rows2 = h00.rows_per_shard, d0.rows_per_shard
+    idx = h10.halo_idx[0].to(dev)  # host-local rows of host 1, -1 pads
+    glob = (2 * rows + idx).clamp(0, h00.n_node_pad - 1)
+    halo = torch.where((idx >= 0)[:, None], x[glob], torch.zeros((), device=dev))
+    # tag -> (bucket, table, (whole width, model shard) of a column slice)
+    cases = {"hier intra (0,0)<-(0,1) d=256": (h00.intra[1], x[rows: 2 * rows], None),
+             "hier cross (0,0)<-host 1 halo d=256": (h00.cross[0], halo, None)}
+    for d, shard in ((256, 0), (256, 1), (40, 0), (40, 1)):
+        w = d // 2
+        cases[f"2-D bucket (0,1) d={w} model shard {shard}"] = (
+            d0.buckets[1], x[rows2: 2 * rows2, shard * w: (shard + 1) * w], (d, shard))
+    out = {"host_build_s": build_s, "cases": {}}
+    for tag, (b, table, whole) in cases.items():
+        b = b.to(dev)
+        table = table.contiguous()
+        row = {"n_edge": b.n_edge, "table_rows": table.shape[0]}
+        for name, fn, bf16 in (("spmm_csr_f32", K.spmm_csr_f32, False),
+                               ("spmm_csr_bf16", K.spmm_csr_bf16, True)):
+            got = fn(b.indptr, b.indices, b.weight, table, schedule=b.schedule)
+            ref = K.spmm_csr_plain(b.indptr, b.indices, b.weight, table, bf16=bf16)
+            row[name] = {"rel_err": rel_err(got, ref), "ms": median_ms(
+                lambda: fn(b.indptr, b.indices, b.weight, table, schedule=b.schedule))}
+            if whole is not None:
+                d, shard = whole
+                full = fn(b.indptr, b.indices, b.weight,
+                          x[rows2: 2 * rows2, :d].contiguous(), schedule=b.schedule)
+                w = d // 2
+                row[name]["equal_to_whole_width"] = torch.equal(
+                    got, full[:, shard * w: (shard + 1) * w])
+        out["cases"][tag] = row
+        same = ("" if whole is None else
+                f"; bit-equal to those columns of the d={whole[0]} launch: f32 "
+                f"{row['spmm_csr_f32']['equal_to_whole_width']} bf16 "
+                f"{row['spmm_csr_bf16']['equal_to_whole_width']}")
+        log(f"    {tag}: {b.n_edge} edges, f32 rel {row['spmm_csr_f32']['rel_err']:.2e} "
+            f"{row['spmm_csr_f32']['ms']:.4f} ms, bf16 rel "
+            f"{row['spmm_csr_bf16']['rel_err']:.2e} {row['spmm_csr_bf16']['ms']:.4f} ms"
+            f"{same} [{card_name}]")
+        assert max(row[k]["rel_err"] for k in ("spmm_csr_f32", "spmm_csr_bf16")) <= REL_TOL
+        assert whole is None or all(row[k]["equal_to_whole_width"]
+                                    for k in ("spmm_csr_f32", "spmm_csr_bf16")), tag
+    out["hier_comm_stats"] = hier_comm_stats(h00, d_feat=256)
+    log(f"    hier_comm_stats d = 256 f32: {out['hier_comm_stats']}; u_max {h00.u_max}, "
+        f"halo rows unpadded {h00.dcn_rows} (transposed {h00.dcn_rows_t})")
+    out["u_max"], out["u_max_t"] = h00.u_max, h00.transpose().u_max
+    del h00, h10, d0, x, halo
+    torch.cuda.empty_cache()
+    return out
+
+
+def hier_launches(cfg, epochs: int, g) -> dict:
+    """A hier rank's launches in ``epochs`` teacher epochs: per layer a
+    forward and a transposed backward in the train step (no loss-masked view
+    on the two-level layout) and a forward in the eval, each launching one
+    kernel a non-empty intra or cross bucket of the rank."""
+    def live(d):
+        return sum(b.n_edge > 0 for b in d.intra + d.cross)
+
+    counts = {"spmm_csr_f32": 0, "spmm_csr_bf16": 0, "spmm_csr_plain": 0}
+    kernel = "spmm_csr_bf16" if cfg.spmm_method == "pallas_bf16" else "spmm_csr_f32"
+    counts[kernel] = cfg.num_layers * (2 * live(g.fwd) + live(g.bwd)) * epochs
+    return counts
+
+
+def two_axis_rank(world, argv: list) -> dict:
+    """Phase 12, one of four ranks (started by ``parallel/launch.py:spawn``):
+    the slice of ``argv`` prepared on the (host, chip) mesh and on the
+    (graph, model) mesh; per layout the teacher in each of ``DIST_RUNS``
+    (launch counts and every communicator's counts read around each run);
+    then one hier step through the kernels and the plain versions, and the
+    plain step on a graph built from permuted edges (the sum-order floor),
+    and the ms of a hier SpMM, its intra ring and halo exchange, and of a
+    2-D SpMM at d = 256."""
+    from gnn_tail_generalization_tpu_torch import main as port_main
+    from gnn_tail_generalization_tpu_torch.config import build_config
+    from gnn_tail_generalization_tpu_torch.data.datasets import (
+        load_dataset, prepare_hier, prepare_sharded)
+    from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
+    from gnn_tail_generalization_tpu_torch.ops.spmm import spmm
+    from gnn_tail_generalization_tpu_torch.parallel.distgraph import is_row_sharded
+    from gnn_tail_generalization_tpu_torch.parallel.hier import (
+        build_hier_graph, halo_exchange, intra_ring)
+    from gnn_tail_generalization_tpu_torch.parallel.mesh import (GRAPH_MODEL, HOST_CHIP,
+                                                                 DeviceMesh)
+    from gnn_tail_generalization_tpu_torch.train import loops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = world.device
+    meshes = {"hier": DeviceMesh(world, (2, 2), HOST_CHIP),
+              "mesh_2d": DeviceMesh(world, (2, 2), GRAPH_MODEL)}
+    comms = [world] + [m.comm(a) for m in meshes.values() for a in m.names]
+    t0 = time.perf_counter()
+    base = build_config(**port_main.parse_args(argv)[0])
+    data = load_dataset(base, "data")
+    cfg = dataclasses.replace(port_main.fitted_to(base, data), dropout=0.0)
+    pds = {"hier": prepare_hier(data, cfg, meshes["hier"], rb=TWO_AXIS_RB["hier"]),
+           "mesh_2d": prepare_sharded(data, cfg, meshes["mesh_2d"],
+                                      rb=TWO_AXIS_RB["mesh_2d"], model_axis="model")}
+    out = {"rank": world.rank, "prepare_s": time.perf_counter() - t0,
+           "coords": {k: m.coords for k, m in meshes.items()}, "runs": {}}
+    for layout, pd in pds.items():
+        for run, (method, seed) in DIST_RUNS.items():
+            cfg_r = dataclasses.replace(cfg, spmm_method=method,
+                                        random_seed=cfg.random_seed + seed)
+            K.reset_launch_counts()
+            for c in comms:
+                c.counts.update(dict.fromkeys(c.counts, 0))
+            res = loops.train_teacher(cfg_r, pd, cfg_r.random_seed, TWO_AXIS_EPOCHS,
+                                      device=dev)
+            g = pd.graph
+            expected = (hier_launches(cfg_r, TWO_AXIS_EPOCHS, g) if layout == "hier" else
+                        expected_dist_launches(cfg_r, TWO_AXIS_EPOCHS, g,
+                                               loops.final_agg_view(cfg_r, pd)))
+            out["runs"][f"{layout} {run}"] = {
+                "records": res.records, "columns": res.columns, "step_ms": res.step_ms,
+                "launches": dict(K.LAUNCHES), "expected": expected,
+                "comm": {f"{m}/{a}": dict(meshes[m].comm(a).counts)
+                         for m in meshes for a in meshes[m].names},
+                "state": {k: v.cpu().numpy() for k, v in res.state_dict.items()
+                          if not is_row_sharded(k)}}
+
+    # (iii) one hier step, kernels vs plain, and the plain step's order floor
+    pd = pds["hier"]
+    g = pd.graph.to(dev)
+    perm = np.random.default_rng(1).permutation(pd.edge_index.shape[1])
+    g_re = build_hier_graph(pd.edge_index[:, perm], pd.graph.n_node, meshes["hier"],
+                            rb=TWO_AXIS_RB["hier"]).to(dev)
+    cfg_k = dataclasses.replace(cfg, spmm_method="pallas")
+    kernel_model = loops._teacher_model(cfg_k, 0, None, g).to(dev)
+    plain_model = copy.deepcopy(kernel_model)
+    for m in plain_model.modules():
+        if hasattr(m, "spmm_method"):
+            m.spmm_method = "gather"
+    floor_model = copy.deepcopy(plain_model)
+    xs, ys = torch.as_tensor(pd.x, device=dev), torch.as_tensor(pd.y, device=dev)
+    mask = torch.as_tensor(pd.train_mask, device=dev)
+    loss_k, grads_k = dist_step_grads(kernel_model, cfg_k, g, None, xs, ys, mask)
+    loss_p, grads_p = dist_step_grads(plain_model, cfg_k, g, None, xs, ys, mask)
+    loss_f, grads_f = dist_step_grads(floor_model, cfg_k, g_re, None, xs, ys, mask)
+    out["step_parity"] = {
+        k: {"rel": rel_err(grads_k[k], grads_p[k]), "floor": rel_err(grads_f[k], grads_p[k])}
+        for k in grads_p}
+    out["step_parity"]["loss"] = {"rel": abs(loss_k - loss_p) / abs(loss_p),
+                                  "floor": abs(loss_f - loss_p) / abs(loss_p)}
+    del kernel_model, plain_model, floor_model, grads_k, grads_p, grads_f, g_re
+
+    # (iv) the ms of one d = 256 SpMM and its parts
+    x = torch.randn(g.rows_per_shard, 256, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(world.rank))
+    out["hier_ms"] = {
+        "spmm auto": timed_ms(lambda: spmm(g, x, "auto"), dev, TWO_AXIS_REPS),
+        "spmm pallas_bf16": timed_ms(lambda: spmm(g, x, "pallas_bf16"), dev,
+                                     TWO_AXIS_REPS),
+        "intra ring f32": timed_ms(lambda: intra_ring(g, x, K.spmm_csr_f32), dev,
+                                   TWO_AXIS_REPS),
+        "halo exchange": timed_ms(lambda: halo_exchange(g, x, 1), dev, TWO_AXIS_REPS)}
+    g2 = pds["mesh_2d"].graph.to(dev)
+    x2 = torch.randn(g2.rows_per_shard, 256, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(world.rank))
+    out["mesh_2d_ms"] = {m: timed_ms(lambda: spmm(g2, x2, m), dev, TWO_AXIS_REPS)
+                         for m in TWO_AXIS_METHODS}
+    return out
+
+
+def two_axis_phase(card_name: str, totals: dict, s1: dict, slice_columns: list) -> dict:
+    """Phase 12: the two-axis layouts (``parallel/hier.py``, the 2-D mesh of
+    ``parallel/distgraph.py``) on the card."""
+    from gnn_tail_generalization_tpu_torch import main as port_main
+    from gnn_tail_generalization_tpu_torch.parallel.launch import spawn
+
+    t_phase = time.perf_counter()
+    cfg, pd = slice_data()
+    log("  (i) buckets of both layouts vs plain; (iv) hier_comm_stats")
+    buckets = two_axis_buckets(pd.edge_index, pd.n_node, card_name)
+    del pd
+    transport = "nccl" if torch.cuda.device_count() >= 4 else "gloo"
+    where = ("over nccl, a card a rank" if transport == "nccl" else
+             "over gloo, 4 ranks on one card, host-staged")
+    log(f"  (ii)-(iv) 4 ranks {where}: hier (2, 2) rb = {TWO_AXIS_RB['hier']}, "
+        f"2-D (2, 2) rb = {TWO_AXIS_RB['mesh_2d']}, {TWO_AXIS_EPOCHS} epochs of "
+        f"{list(DIST_RUNS)} each")
+    t0 = time.perf_counter()
+    ranks = spawn(two_axis_rank, 4, transport, "cuda", SLICE_ARGS)
+    spawn_s = time.perf_counter() - t0
+    n_sets = s1["n_sets"]
+    summary = {layout: {"where": where, "spawn_s": spawn_s, "runs": {}}
+               for layout in ("hier", "mesh_2d")}
+    for name in ranks[0]["runs"]:
+        layout, run_name = name.split(" ", 1)
+        method = DIST_RUNS[run_name][0]
+        for r in ranks:
+            run = r["runs"][name]
+            assert run["launches"] == run["expected"], (name, r["rank"], run["launches"],
+                                                        run["expected"])
+            assert np.isfinite(run["records"]).all(), (name, run["records"])
+            assert np.array_equal(run["records"], ranks[0]["runs"][name]["records"]), name
+            for k, v in run["launches"].items():
+                totals[k] += v
+        # whole parameters bit-equal on every rank; a 2-D column slice on
+        # the ranks of its model shard
+        groups = ([ranks] if layout == "hier" else
+                  [[r for r in ranks if r["coords"]["mesh_2d"]["model"] == m]
+                   for m in range(2)])
+        for grp in groups:
+            st = [r["runs"][name]["state"] for r in grp]
+            bad = [k for k in st[0] if not all(np.array_equal(o[k], st[0][k]) for o in st[1:])]
+            assert not bad, (name, bad)
+        run0 = ranks[0]["runs"][name]
+        a, b = s1["records"][1][run_name][:TWO_AXIS_EPOCHS], run0["records"]
+        flips = flipped_nodes(a, b, n_sets)
+        flips_s2 = flipped_nodes(s1["records"][2][run_name][:TWO_AXIS_EPOCHS], b, n_sets)
+        loss_rel = float(np.abs(a[:, 0] - b[:, 0]).max() / np.abs(a[:, 0]).max())
+        log(f"    {name:25s} launches/rank {[r['runs'][name]['launches'] for r in ranks]} "
+            f"step_ms {[round(v, 3) for v in run0['step_ms']]} [{card_name}]")
+        log(f"      vs phase 10's S = 1: loss rel {loss_rel:.3e}, nodes flipped per "
+            f"accuracy column {flips.max(axis=0).round(2).tolist()} (vs its S = 2: "
+            f"{flips_s2.max(axis=0).round(2).tolist()}); comm counts rank 0 {run0['comm']}")
+        if method == "auto":
+            np.testing.assert_allclose(b, a, rtol=1e-4, atol=1e-3, err_msg=name)
+        else:
+            np.testing.assert_allclose(b[:, 0], a[:, 0], rtol=1e-4, err_msg=name)
+            assert flips.max() <= DIST_BF16_FLIPS, (name, flips)
+        summary[layout]["runs"][run_name] = {
+            "step_ms": run0["step_ms"], "loss_rel_vs_s1": loss_rel,
+            "flipped_nodes": flips.max(axis=0).tolist(),
+            "flipped_nodes_vs_s2": flips_s2.max(axis=0).tolist(),
+            "launches": [r["runs"][name]["launches"] for r in ranks],
+            "comm": run0["comm"]}
+    for r in ranks:
+        worst = {k: v for k, v in r["step_parity"].items()
+                 if v["rel"] > max(REL_TOL, 4 * v["floor"])}
+        top = max(r["step_parity"].items(), key=lambda kv: kv[1]["rel"])
+        log(f"    rank {r['rank']}: one hier step, kernels vs plain, max rel "
+            f"{top[1]['rel']:.3e} ({top[0]}, order floor {top[1]['floor']:.3e})")
+        assert not worst, worst
+    summary["hier"]["step_parity"] = [r["step_parity"] for r in ranks]
+    summary["hier"].update({k: ranks[0][k] for k in ("hier_ms", "prepare_s")})
+    summary["mesh_2d"]["spmm_ms"] = ranks[0]["mesh_2d_ms"]
+    summary["hier"].update(buckets)
+    log(f"    ms a d = 256 SpMM ({where}): hier {ranks[0]['hier_ms']}, 2-D "
+        f"{ranks[0]['mesh_2d_ms']} [{card_name}]")
+
+    log(f"  (v) main --hier_mesh=2x2 ({transport})")
+    t0 = time.perf_counter()
+    cli = port_main.main(HIER_CLI_ARGS + ([] if transport == "nccl"
+                                          else ["--dist_transport=gloo"]))
+    cli_s = time.perf_counter() - t0
+    rec = cli[0].records
+    assert cli[0].columns == slice_columns, (cli[0].columns, slice_columns)
+    assert rec.shape == (2, len(slice_columns)) and np.isfinite(rec).all(), rec
+    summary["hier"]["cli_s"] = cli_s
+    phase_s = time.perf_counter() - t_phase
+    log(f"  cli: {cli_s:.1f} s, columns {cli[0].columns}, last "
+        f"{np.round(rec[-1], 4).tolist()}")
+    log(f"  phase 12: {phase_s:.1f} s")
+    summary["hier"]["phase_s"] = summary["mesh_2d"]["phase_s"] = phase_s
+    return summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
@@ -2334,12 +2663,15 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     log("== phase 10: the row-sharded teacher")
-    sharded = sharded_phase(eb, gb, card_name, totals)
+    sharded, s1_reference = sharded_phase(eb, gb, card_name, totals)
 
     log("== phase 11: the sharded students, LP and C&S, link prediction")
     students_dist = sharded_students_phase(card_name, totals, split_edge, msg,
                                            linkpred["bench"]["step_ms"])
     del split_edge, msg
+
+    log("== phase 12: the two-axis layouts (hier host x card, 2-D graph x model)")
+    two_axis = two_axis_phase(card_name, totals, s1_reference, results[0].columns)
 
     assert totals["spmm_csr_plain"] == 0, totals
     kernels = [{"name": name, "route": "cuda", "source": SOURCE,
@@ -2349,7 +2681,8 @@ def main() -> int:
                       "student": student, "trick_step_ms": tricks,
                       "propagation": propagation, "linkpred": linkpred,
                       "cli": cli, "baselines": baselines, "sharded": sharded,
-                      "sharded_students": students_dist, "card": card_name}))
+                      "sharded_students": students_dist, **two_axis,
+                      "card": card_name}))
     print(card_name)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,10 @@
 """Dataset container and the node-classification preparation pipeline.
 
-The port of ``gnn_tail_generalization_tpu/data/datasets.py``: ``prepare``,
-and ``prepare_sharded`` for one rank of a row-sharded run, which every
-``train_which`` trains on (``prepare_hier`` and the 2-D graph x model mesh
-come with the two-level layout, ROADMAP A12b items 4-5). Reference parity:
+The port of ``gnn_tail_generalization_tpu/data/datasets.py``: ``prepare``;
+``prepare_sharded`` for one rank of a row-sharded run, which every
+``train_which`` trains on, and with ``model_axis`` for one rank of the 2-D
+graph x model mesh; and ``prepare_hier`` for one rank of the two-level
+(host x card) layout. Reference parity:
 the reference's ``trainer_node_classification.py`` (load_data: Planetoid
 public split with NormalizeFeatures, the Cora first-600-train special split,
 symmetrize + de/re-self-loop edge pipeline) and ``utils.py:680-752`` (degree
@@ -21,7 +22,8 @@ from ..config import Config
 from ..graph import analysis
 from ..graph.core import Graph, build_graph, standard_pipeline
 from ..parallel.comm import Comm
-from ..parallel.distgraph import DistGraph, build_dist_graph, pad_rows_np
+from ..parallel.distgraph import ShardedGraph, build_dist_graph, pad_rows_np
+from ..parallel.mesh import DeviceMesh
 
 
 @dataclass
@@ -41,8 +43,8 @@ class NodeData:
 class PreparedData:
     """Everything the train loop needs, after the full preprocessing chain.
     Arrays are host numpy; ``graph`` is a CPU ``Graph`` (``.to(device)``), or
-    one rank's ``DistGraph`` from ``prepare_sharded``, whose row arrays are
-    that rank's rows."""
+    one rank's ``DistGraph`` from ``prepare_sharded`` or ``HierGraph`` from
+    ``prepare_hier``, whose row arrays are that rank's rows."""
 
     x: np.ndarray
     y: np.ndarray
@@ -54,7 +56,7 @@ class PreparedData:
     train_idx: np.ndarray
     test_idx: np.ndarray
     splits: Optional[analysis.DegreeSplits]
-    graph: Union[Graph, DistGraph]  # built from the crafted edge list
+    graph: Union[Graph, ShardedGraph]  # built from the crafted edge list
 
     @property
     def n_node(self) -> int:
@@ -122,29 +124,14 @@ def prepare(data: NodeData, cfg: Config, *, spmm_dense_threshold: int = 8192
     )
 
 
-def prepare_sharded(data: NodeData, cfg: Config, comm: Comm, *,
-                    rb: int = 128, model_axis: Optional[str] = None
-                    ) -> PreparedData:
-    """``prepare`` for rank ``comm.shard`` of a row-sharded run (JAX
-    ``data/datasets.py:115-180``): the same chain, the graph a
-    ``parallel/distgraph.py:DistGraph`` (with its edge view under
-    ``cfg.apply_graph_dropout``), and x, y, the masks and the head/tail/iso
-    splits padded to ``n_node_pad`` (zero features, label 0, every mask
-    False) with this rank's rows kept. ``edge_index``, ``train_idx`` and
-    ``test_idx`` stay global host arrays. Padded rows enter no loss, metric
-    or aggregation, but they do enter the norms' statistics, as in the JAX
-    package's sharded run. ``model_axis`` (the JAX package's 2-D graph x
-    model mesh) is not ported yet and raises."""
-    if model_axis is not None:
-        raise NotImplementedError("the 2-D graph x model mesh (model_axis) is "
-                                  "not ported yet (ROADMAP A12b item 4)")
-    n = data.x.shape[0]
-    data, test_mask, e, e_crafted, splits = _edges_and_splits(data, cfg)
-    dg = build_dist_graph(e_crafted, n, comm, rb=rb,
-                          with_edge_view=cfg.apply_graph_dropout)
-
+def _sharded_data(data: NodeData, test_mask, e, e_crafted, splits,
+                  g: ShardedGraph) -> PreparedData:
+    """x, y, the masks and the head/tail/iso splits padded to
+    ``g.n_node_pad`` (zero features, label 0, every mask False) with the
+    rank's rows of ``g`` kept; ``edge_index``, ``train_idx`` and
+    ``test_idx`` stay global host arrays."""
     def rows(a):
-        return np.ascontiguousarray(dg.local_rows(pad_rows_np(np.asarray(a), dg.n_node_pad)))
+        return np.ascontiguousarray(g.local_rows(pad_rows_np(np.asarray(a), g.n_node_pad)))
 
     if splits is not None:
         splits = dataclasses.replace(
@@ -163,8 +150,67 @@ def prepare_sharded(data: NodeData, cfg: Config, comm: Comm, *,
         train_idx=np.where(data.train_mask)[0],
         test_idx=np.where(test_mask)[0],
         splits=splits,
-        graph=dg,
+        graph=g,
     )
+
+
+def prepare_sharded(data: NodeData, cfg: Config, comm: Union[Comm, DeviceMesh], *,
+                    rb: int = 128, axis: str = "graph",
+                    model_axis: Optional[str] = None) -> PreparedData:
+    """``prepare`` for rank ``comm.shard`` of a row-sharded run (JAX
+    ``data/datasets.py:115-180``): the same chain, the graph a
+    ``parallel/distgraph.py:DistGraph`` (with its edge view under
+    ``cfg.apply_graph_dropout``), and x, y, the masks and the head/tail/iso
+    splits padded to ``n_node_pad = round_up(n, S * rb)`` (zero features,
+    label 0, every mask False) with this rank's rows kept. ``edge_index``,
+    ``train_idx`` and ``test_idx`` stay global host arrays. Padded rows
+    enter no loss, metric or aggregation, but they do enter the norms'
+    statistics, as in the JAX package's sharded run.
+
+    ``comm`` may be a ``parallel/mesh.py:DeviceMesh``: the rows are cut over
+    its axis ``axis``, and with ``model_axis`` the run is the 2-D graph x
+    model mesh (``S`` the graph axis's size): the rank keeps its graph
+    shard's rows and every column of ``x`` (the first Dense takes it
+    whole), and the model axis splits the kernels' columns
+    (``parallel/distgraph.py``)."""
+    model_comm = None
+    if isinstance(comm, DeviceMesh):
+        mesh = comm
+        comm = mesh.comm(axis)
+        model_comm = None if model_axis is None else mesh.comm(model_axis)
+    elif model_axis is not None:
+        raise ValueError("model_axis needs a DeviceMesh that holds the axis, "
+                         "not a Comm")
+    n = data.x.shape[0]
+    data, test_mask, e, e_crafted, splits = _edges_and_splits(data, cfg)
+    dg = build_dist_graph(e_crafted, n, comm, rb=rb,
+                          with_edge_view=cfg.apply_graph_dropout,
+                          model_comm=model_comm)
+    return _sharded_data(data, test_mask, e, e_crafted, splits, dg)
+
+
+def prepare_hier(data: NodeData, cfg: Config, mesh: DeviceMesh, *,
+                 host_axis: str = "host", chip_axis: str = "chip",
+                 rb: int = 128) -> PreparedData:
+    """``prepare`` for one rank of the two-level (host x card) layout (JAX
+    ``data/datasets.py:183-230``): the graph a ``parallel/hier.py:
+    HierGraph`` over ``mesh``'s axes ``host_axis`` and ``chip_axis``, rows
+    host-major (shard ``h * C + c``) and padded to ``round_up(n, H * C *
+    rb)``: the row cut of a ``DistGraph`` of ``H * C`` shards, and the
+    arrays as ``prepare_sharded`` cuts them. Graph dropout needs the
+    ``DistGraph`` edge view, so ``cfg.apply_graph_dropout`` raises
+    ``ValueError``, as JAX asserts (``:191-194``)."""
+    from ..parallel.hier import build_hier_graph
+
+    if cfg.apply_graph_dropout:
+        raise ValueError("graph-dropout tricks need the DistGraph edge view; use "
+                         "prepare_sharded for dropout-trick runs (not the "
+                         "two-level layout)")
+    n = data.x.shape[0]
+    data, test_mask, e, e_crafted, splits = _edges_and_splits(data, cfg)
+    hg = build_hier_graph(e_crafted, n, mesh, host_axis=host_axis,
+                          chip_axis=chip_axis, rb=rb)
+    return _sharded_data(data, test_mask, e, e_crafted, splits, hg)
 
 
 def load_dataset(cfg: Config, data_root: Optional[str] = None,

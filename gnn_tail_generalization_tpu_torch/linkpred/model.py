@@ -48,7 +48,7 @@ from torch import nn
 from ..graph.core import (Graph, add_self_loops, build_graph, edge_rows,
                           gcn_norm_weights, remove_self_loops, symmetrize)
 from ..parallel.comm import Comm
-from ..parallel.distgraph import (DistGraph, build_dist_graph, comm_of,
+from ..parallel.distgraph import (DistGraph, ShardedGraph, build_dist_graph, comm_of,
                                   dist_take_rows, sum_replicated_grads)
 from ..utils.device import resolve_device
 from . import losses as L
@@ -252,8 +252,8 @@ def clip_by_global_norm(params: Iterable[nn.Parameter], max_norm: float
 
 def take_rows(g, h: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Rows ``idx`` of the encoded table ``h``: ``h[idx]`` on one device;
-    on a ``DistGraph`` (``h`` the rank's rows) ``dist_take_rows``."""
-    if isinstance(g, DistGraph):
+    on a sharded graph (``h`` the rank's rows) ``dist_take_rows``."""
+    if isinstance(g, ShardedGraph):
         return dist_take_rows(g, h, idx)
     return h[idx]
 

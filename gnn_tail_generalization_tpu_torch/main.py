@@ -26,7 +26,14 @@ on the CPU. Rank 0 prints the lines a one-device run prints; seeds run one
 after another. Link
 prediction (``--exp_mode=I2_GTL --task=linkp``) is not sharded here, as in
 the JAX CLI; ``linkpred/model.py:train_linkpred(comm=...)`` shards it.
-``--hier_mesh`` is not ported yet (ROADMAP A12b).
+
+``--hier_mesh=HxC`` trains the TeacherGNN on the two-level (host x card)
+layout (``parallel/hier.py``, ``data/datasets.py:prepare_hier``): H x C
+local ranks on a ``(host, chip)`` mesh, or torchrun's world with C ranks a
+node, the transport as for ``--n_devices``; rank 0 prints the one-device
+lines. It refuses another ``--train_which`` and graph dropout, as the JAX
+CLI does. The 2-D graph x model mesh has no flag here, as in the JAX CLI:
+it is the library path ``prepare_sharded(..., model_axis=...)``.
 
 Usage:
   python -m gnn_tail_generalization_tpu_torch.main --dataset=ogbn-arxiv \
@@ -40,6 +47,8 @@ Usage:
       --train_which=SEMLP --n_devices=4 --epochs=2 --device=cpu
   torchrun --nproc_per_node=4 -m gnn_tail_generalization_tpu_torch.main \
       --dataset=ogbn-arxiv --epochs=3
+  python -m gnn_tail_generalization_tpu_torch.main --dataset=TEXAS \
+      --hier_mesh=2x2 --epochs=2 --device=cpu
 """
 from __future__ import annotations
 
@@ -53,10 +62,12 @@ import numpy as np
 import torch
 
 from .config import Config, apply_arch_configs, build_config
-from .data.datasets import PreparedData, load_dataset, prepare, prepare_sharded
+from .data.datasets import (PreparedData, load_dataset, prepare, prepare_hier,
+                            prepare_sharded)
 from .data.synthetic import fast_powerlaw_graph
 from .parallel.comm import TRANSPORTS, Comm
 from .parallel.launch import spawn
+from .parallel.mesh import HOST_CHIP, DeviceMesh, parse_hier_mesh
 from .parallel.multihost import initialize_multihost
 from .train.loops import TrainResult, run_experiment
 from .utils.device import resolve_device
@@ -96,8 +107,10 @@ def parse_args(argv: Optional[List[str]] = None):
                              "through the host, so ranks may share a card; "
                              "the CPU's)")
     parser.add_argument("--hier_mesh", type=str, default=None,
-                        help="the two-level (host x card) layout: not ported "
-                             "yet (ROADMAP A12b)")
+                        help="HxC (e.g. 2x4): the two-level (host x card) "
+                             "layout, a ring within each host and only the "
+                             "halo across hosts (parallel/hier.py); H x C "
+                             "ranks. TeacherGNN only")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device to train on (cuda or cpu)")
     ns = parser.parse_args(argv)
@@ -116,7 +129,7 @@ def _torchrun_world() -> int:
 
 
 def _sharded(ns) -> bool:
-    return ns.n_devices > 1 or _torchrun_world() > 1
+    return ns.n_devices > 1 or _torchrun_world() > 1 or bool(ns.hier_mesh)
 
 
 SHARDED_TRAIN_WHICH = ("TeacherGNN", "SEMLP", "StudentBaseMLP", "GraphMLP", "LP")
@@ -124,8 +137,20 @@ SHARDED_TRAIN_WHICH = ("TeacherGNN", "SEMLP", "StudentBaseMLP", "GraphMLP", "LP"
 
 def _check_supported(cfg: Config, ns) -> None:
     if ns.hier_mesh:
-        raise NotImplementedError("--hier_mesh: the two-level (host x card) "
-                                  "layout is not ported yet (ROADMAP A12b)")
+        h, c = parse_hier_mesh(ns.hier_mesh)
+        if cfg.train_which != "TeacherGNN" or (cfg.exp_mode == "I2_GTL"
+                                               and cfg.task != "nodeC"):
+            raise ValueError(f"--hier_mesh trains the TeacherGNN (as the JAX CLI "
+                             f"does), not {cfg.train_which!r} / task {cfg.task!r}")
+        if cfg.apply_graph_dropout:
+            raise ValueError("--hier_mesh: graph-dropout tricks need the DistGraph "
+                             "edge view; use --n_devices for them")
+        if ns.n_devices > 1:
+            raise ValueError("--hier_mesh and --n_devices name two layouts; give one")
+        if _torchrun_world() > 1 and _torchrun_world() != h * c:
+            raise ValueError(f"--hier_mesh={ns.hier_mesh} under torchrun's "
+                             f"WORLD_SIZE={_torchrun_world()}")
+        return
     if not _sharded(ns):
         return
     if cfg.exp_mode == "I2_GTL" and cfg.task != "nodeC":
@@ -201,12 +226,14 @@ def fitted_to(cfg: Config, data) -> Config:
         num_classes=int(data.y.max()) + 1))
 
 
-def load_prepared(cfg: Config, data_root: str, comm: Optional[Comm] = None,
+def load_prepared(cfg: Config, data_root: str,
+                  comm: Union[Comm, DeviceMesh, None] = None,
                   rb: int = 128) -> Tuple[Config, PreparedData]:
     """The dataset prepared for ``cfg``, and ``cfg`` fitted to the synthetic
     stand-in's shapes when no raw files were found. With ``comm``, rank
     ``comm.shard``'s part (``prepare_sharded``, shards of ``rb``-row
-    multiples), and only rank 0 prints."""
+    multiples; a ``(host, chip)`` ``DeviceMesh``: ``prepare_hier``), and
+    only rank 0 prints."""
     data = load_dataset(cfg, data_root)
     if data.name.startswith("synthetic"):
         if comm is None or comm.rank == 0:
@@ -215,6 +242,8 @@ def load_prepared(cfg: Config, data_root: str, comm: Optional[Comm] = None,
         cfg = fitted_to(cfg, data)
     if comm is None:
         return cfg, prepare(data, cfg)
+    if isinstance(comm, DeviceMesh):
+        return cfg, prepare_hier(data, cfg, comm, rb=rb)
     return cfg, prepare_sharded(data, cfg, comm, rb=rb)
 
 
@@ -234,9 +263,14 @@ def main(argv: Optional[List[str]] = None
     _check_supported(cfg, ns)
     if _sharded(ns):
         transport = ns.dist_transport or ("gloo" if ns.device == "cpu" else "nccl")
+        world, mesh = ns.n_devices, None
+        if ns.hier_mesh:
+            h, c = parse_hier_mesh(ns.hier_mesh)
+            world, mesh = h * c, ((h, c), HOST_CHIP)
         if _torchrun_world() > 1:
-            return sharded_main(initialize_multihost(transport, ns.device), argv)
-        return spawn(sharded_main, ns.n_devices, transport, ns.device, argv)[0]
+            return sharded_main(initialize_multihost(transport, ns.device, mesh=mesh),
+                                argv)
+        return spawn(sharded_main, world, transport, ns.device, argv, mesh=mesh)[0]
     device = resolve_device(ns.device)
     _full_f32_matmuls()
     if cfg.exp_mode == "I2_GTL" and cfg.task != "nodeC":
@@ -244,16 +278,18 @@ def main(argv: Optional[List[str]] = None
     return _run(cfg, overrides, ns, device)
 
 
-def sharded_main(comm: Comm, argv: Optional[List[str]]
+def sharded_main(comm: Union[Comm, DeviceMesh], argv: Optional[List[str]]
                  ) -> List[Union[TrainResult, Dict[str, float]]]:
-    """One rank of ``main`` under ``--n_devices`` (``parallel/launch.py``
-    starts it; under torchrun ``main`` calls it)."""
+    """One rank of ``main`` under ``--n_devices``, or under ``--hier_mesh``
+    with its ``(host, chip)`` mesh (``parallel/launch.py`` starts it; under
+    torchrun ``main`` calls it)."""
     overrides, ns = parse_args(argv)
     _full_f32_matmuls()
     return _run(build_config(**overrides), overrides, ns, comm.device, comm)
 
 
-def _run(cfg: Config, overrides: dict, ns, device, comm: Optional[Comm] = None
+def _run(cfg: Config, overrides: dict, ns, device,
+         comm: Union[Comm, DeviceMesh, None] = None
          ) -> List[Union[TrainResult, Dict[str, float]]]:
     """The experiment on this process, on one device or as one rank
     (``comm``), where rank 0 prints and records."""

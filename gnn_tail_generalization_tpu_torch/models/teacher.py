@@ -22,8 +22,8 @@ from ..nn.backbone import TricksCombBackbone
 from ..nn.mlp import MLP
 
 
-def backbone_from_config(cfg: Config, generator: Optional[torch.Generator]
-                         ) -> TricksCombBackbone:
+def backbone_from_config(cfg: Config, generator: Optional[torch.Generator],
+                         model_comm=None) -> TricksCombBackbone:
     return TricksCombBackbone(
         num_feats=cfg.dim_learnable_input or cfg.num_feats,
         num_classes=cfg.dim_commonEmb,
@@ -45,14 +45,19 @@ def backbone_from_config(cfg: Config, generator: Optional[torch.Generator]
         graph_dropout=cfg.graph_dropout,
         layerwise_dropout=cfg.layerwise_dropout,
         generator=generator,
+        model_comm=model_comm,
     )
 
 
 class TeacherGNN(nn.Module):
-    def __init__(self, cfg: Config, generator: Optional[torch.Generator] = None):
+    """``model_comm``: the model axis of a 2-D graph x model mesh, whose
+    ranks split the backbone's kernel columns (``nn/backbone.py``)."""
+
+    def __init__(self, cfg: Config, generator: Optional[torch.Generator] = None,
+                 model_comm=None):
         super().__init__()
         self.cfg = cfg
-        self.backbone = backbone_from_config(cfg, generator)
+        self.backbone = backbone_from_config(cfg, generator, model_comm)
         if cfg.dim_learnable_input > 0:
             self.input_embs = nn.Parameter(torch.empty(
                 cfg.N_nodes, cfg.dim_learnable_input))

@@ -23,9 +23,15 @@ With ``apply_graph_dropout`` a train-mode forward draws per-layer edge masks
 (nn/graph_dropout.py) from its ``graph_generator`` and runs each conv on its
 masked graph; eval mode keeps the full graph.
 
-On a ``DistGraph`` (``parallel/distgraph.py``) the forward runs on the rank's
-rows: the convs ring, the norms reduce over every rank, and the graph-dropout
-masks are drawn over the canonical edge list, the same on every rank.
+On a sharded graph (``parallel/distgraph.py:ShardedGraph``: a ``DistGraph``
+or ``parallel/hier.py:HierGraph``) the forward runs on the rank's rows: the
+convs ring, the norms reduce over every rank, and the graph-dropout masks
+are drawn over the canonical edge list, the same on every rank. Built with
+the model axis of a 2-D mesh (``model_comm``), the convs, the input Dense,
+``out_mlp`` and the dense and jumping aggregations are column-parallel
+where that axis splits their output width (``nn/gcn.py``, ``nn/mlp.py:
+ColumnLinear``); activations stay whole, and the norms reduce over the
+graph axis (``comm_of(g)``).
 """
 from __future__ import annotations
 
@@ -59,7 +65,8 @@ class TricksCombBackbone(nn.Module):
                  type_model: str = "GCN", spmm_method: str = "auto",
                  apply_graph_dropout: bool = False, graph_dropout: float = 0.2,
                  layerwise_dropout: bool = False,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 model_comm=None):
         super().__init__()
         self.type_trick = type_trick
         self.res_alpha = res_alpha
@@ -78,7 +85,8 @@ class TricksCombBackbone(nn.Module):
 
         res = self.has_residual_mlp
         if res:
-            self.input_dense = dense_layer(num_feats, dim_hidden, generator)
+            self.input_dense = dense_layer(num_feats, dim_hidden, generator,
+                                           model_comm=model_comm)
         convs = []
         for i in range(num_layers):
             if res:
@@ -91,25 +99,28 @@ class TricksCombBackbone(nn.Module):
                 d_out, has_se = num_classes, whetherHasSE[2]
             d_in = dim_hidden if (res or i > 0) else num_feats
             convs.append(GCNConv(d_in, d_out, n_node, has_se=bool(has_se),
-                                 spmm_method=spmm_method, generator=generator))
+                                 spmm_method=spmm_method, generator=generator,
+                                 model_comm=model_comm))
         self.convs = nn.ModuleList(convs)
         # each norm is as wide as the conv before it (flax infers the width)
         self.norms = (nn.ModuleList(
-            NormLayer(kind, c.weight.shape[1], node_norm_type, skip_weight,
+            NormLayer(kind, c.out_feats, node_norm_type, skip_weight,
                       num_groups, generator) for c in convs)
             if norm_applies(type_trick) else None)
         # layer i aggregates the input Dense's output and i + 1 conv outputs
         self.dense_aggs = (nn.ModuleList(
-            DenseConnection(dim_hidden, dim_hidden, i + 2, layer_agg, generator)
+            DenseConnection(dim_hidden, dim_hidden, i + 2, layer_agg, generator,
+                            model_comm)
             for i in range(num_layers))
             if res and self._connection() == "Dense" else None)
         self.jumping_agg = self.out_mlp = None
         if res and "Jumping" in type_trick:
             self.jumping_agg = DenseConnection(dim_hidden, num_classes,
                                                num_layers + 1, layer_agg,
-                                               generator)
+                                               generator, model_comm)
         elif res:
-            self.out_mlp = dense_layer(dim_hidden, num_classes, generator)
+            self.out_mlp = dense_layer(dim_hidden, num_classes, generator,
+                                       model_comm=model_comm)
 
     def _connection(self) -> Optional[str]:
         """The connection after each layer: Residual, Initial or Dense (in

@@ -9,6 +9,11 @@ approximation, and ``nn.LayerNorm`` uses eps 1e-6. The JAX ``MLP``'s
 ``activation``, ``use_bias`` and ``normfun`` options have no caller that
 changes them and are not carried over: the stack is always GELU with
 LayerNorm and biases.
+
+On a 2-D graph x model mesh ``dense_layer(..., model_comm=...)`` gives a
+``ColumnLinear`` where the model axis splits the output width: the JAX
+package's column-parallel kernel (``parallel/distgraph.py:shard_params
+:714-716``), whose input and output are whole on every model rank.
 """
 from __future__ import annotations
 
@@ -18,6 +23,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.comm import Comm, copy_to, gather_cols
+from ..parallel.distgraph import model_cols
 from .dropout import dropout
 
 # flax's lecun_normal: a normal truncated at two standard deviations, scaled
@@ -28,16 +35,41 @@ _LN_EPS = 1e-6  # flax nn.LayerNorm's default
 
 def dense_layer(in_feats: int, out_feats: int,
                 generator: Optional[torch.Generator], *,
-                bias: bool = True) -> nn.Linear:
+                bias: bool = True, model_comm: Optional[Comm] = None) -> nn.Module:
     """``nn.Linear`` initialised like flax ``nn.Dense``: lecun-normal weight,
-    zero bias (``bias=False``: flax's ``use_bias=False``)."""
+    zero bias (``bias=False``: flax's ``use_bias=False``). With the model
+    axis ``model_comm`` of a 2-D mesh that splits ``out_feats``: a
+    ``ColumnLinear`` holding this model shard's rows of that weight."""
     lin = nn.Linear(in_feats, out_feats, bias=bias)
     std = (1.0 / in_feats) ** 0.5 / _TRUNC_STD
     nn.init.trunc_normal_(lin.weight, std=std, a=-2 * std, b=2 * std,
                           generator=generator)
     if bias:
         nn.init.zeros_(lin.bias)
-    return lin
+    mc = model_cols(out_feats, model_comm)
+    return lin if mc is None else ColumnLinear(lin, mc)
+
+
+class ColumnLinear(nn.Module):
+    """The column-parallel Dense of a 2-D mesh: ``weight`` holds model shard
+    ``comm.shard``'s rows of ``lin.weight`` (``[out / M, in]``, the kernel's
+    output columns), ``bias`` is whole (replicated, as in JAX). The input
+    enters through ``copy_to`` (its gradient summed over the model axis),
+    the slices of the product are all-gathered (``gather_cols``), and the
+    bias is added to the whole output, so input and output are those of
+    ``lin`` on every model rank."""
+
+    def __init__(self, lin: nn.Linear, comm: Comm):
+        super().__init__()
+        self.comm = comm
+        rows = lin.out_features // comm.world_size
+        self.weight = nn.Parameter(
+            lin.weight.detach()[comm.shard * rows: (comm.shard + 1) * rows].clone())
+        self.bias = lin.bias
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = gather_cols(F.linear(copy_to(x, self.comm), self.weight), self.comm)
+        return y if self.bias is None else y + self.bias
 
 
 class MLP(nn.Module):

@@ -34,17 +34,20 @@ class DenseConnection(nn.Module):
     one Linear from the concatenation to ``out_dim``; maxpool: the
     elementwise max (``[N, in_dim]``); attention: each input weighted by
     sigmoid(Dense(1)) of itself and summed (``[N, in_dim]``). flax infers
-    the Linear's input width; torch takes it here."""
+    the Linear's input width; torch takes it here. ``model_comm``: the model
+    axis of a 2-D mesh (``dense_layer``)."""
 
     def __init__(self, in_dim: int, out_dim: int, n_inputs: int,
                  aggregation: str = "concat",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 model_comm=None):
         super().__init__()
         self.aggregation = aggregation
         if aggregation == "concat":
-            self.lin = dense_layer(in_dim * n_inputs, out_dim, generator)
+            self.lin = dense_layer(in_dim * n_inputs, out_dim, generator,
+                                   model_comm=model_comm)
         elif aggregation == "attention":
-            self.lin = dense_layer(in_dim, 1, generator)
+            self.lin = dense_layer(in_dim, 1, generator, model_comm=model_comm)
         elif aggregation == "maxpool":
             self.lin = None
         else:

@@ -18,8 +18,10 @@ round to bf16. On a CPU tensor the kernel paths run the kernels' plain
 versions.
 
 The backward is the same aggregation on the transposed CSR (dx = A^T dy);
-the graph gets no gradient. A ``DistGraph`` (one rank's row shard) goes to
-the ring SpMM, as in the JAX package (``ops/spmm.py:68-77``). ``spmm_edge_grad`` is the variant whose edge
+the graph gets no gradient. A sharded graph (one rank's row shard) goes to
+its own SpMM, as in the JAX package (``ops/spmm.py:68-82``): a ``DistGraph``
+to the ring, ``parallel/distgraph.py:dist_spmm``, a ``HierGraph`` to
+``parallel/hier.py:hier_spmm``. ``spmm_edge_grad`` is the variant whose edge
 weights train (their gradient an SDDMM), and ``spmm_normalized`` the
 degree-normalized aggregation.
 """
@@ -30,7 +32,7 @@ from typing import Union
 import torch
 
 from ..graph.core import Graph, edge_rows
-from ..parallel.distgraph import DistGraph, dist_spmm
+from ..parallel.distgraph import ShardedGraph
 from . import spmm_kernels
 from .sddmm import edge_dot
 
@@ -76,16 +78,16 @@ class _SpMM(torch.autograd.Function):
         return dx.to(ctx.x_dtype), None, None
 
 
-def spmm(g: Union[Graph, DistGraph], x: torch.Tensor, method: str = "auto"
+def spmm(g: Union[Graph, ShardedGraph], x: torch.Tensor, method: str = "auto"
          ) -> torch.Tensor:
     """y = A @ x with A[dst, src] = w_e. ``x``: [N, d] f32, or bf16 (the
     link-prediction GCN's bf16 Dense output under ``pallas_bf16``) ->
     ``y``: [N, d] f32; the gradient of ``x`` takes ``x``'s dtype.
     Raises unless ``x`` has one row per node of ``g``: the CUDA kernels read
-    ``x[indices_e]`` unchecked. On a ``DistGraph`` (one rank's shard) this
-    is the ring, ``parallel/distgraph.py:dist_spmm``, on the rank's rows."""
-    if isinstance(g, DistGraph):
-        return dist_spmm(g, x, method)
+    ``x[indices_e]`` unchecked. On a sharded graph (one rank's shard) this
+    is the graph's own SpMM on the rank's rows (``ShardedGraph.spmm``)."""
+    if isinstance(g, ShardedGraph):
+        return g.spmm(x, method)
     if x.dim() != 2 or x.shape[0] != g.n_node:
         raise ValueError(f"x must be [{g.n_node}, d] for a graph of "
                          f"{g.n_node} nodes, got {tuple(x.shape)}")

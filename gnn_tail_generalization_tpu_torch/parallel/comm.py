@@ -12,12 +12,14 @@ transport and the ring order. Two transports, named by the caller:
 A failed NCCL set-up raises: nothing switches to gloo behind the caller's
 back. The collectives:
 
-- ``ring_shift(t)``: the JAX ring (``parallel/distgraph.py:452-453``, a
-  ``ppermute`` with device ``i`` sending to ``(i - 1) % S``): shard ``s``
-  sends ``t`` to shard ``s - 1`` and receives shard ``s + 1``'s, so after
-  ``t`` shifts shard ``s`` holds the block of shard ``(s + t) % S``. It
-  returns a handle whose ``wait()`` gives the received block, so a caller
-  can compute while the block moves.
+- ``ring_shift(t, offset=1)``: the JAX ring (``parallel/distgraph.py:
+  452-453``, a ``ppermute`` with device ``i`` sending to ``(i - 1) % S``):
+  shard ``s`` sends ``t`` to shard ``s - offset`` and receives shard
+  ``s + offset``'s, so after ``t`` shifts of 1 shard ``s`` holds the block of
+  shard ``(s + t) % S``; ``offset`` t is the host-axis hop of
+  ``parallel/hier.py`` (JAX ``hier.py:403-404``). It returns a handle whose
+  ``wait()`` gives the received block, so a caller can compute while the
+  block moves.
 - ``all_reduce_sum(t)``: the sum over the ranks, differentiable (its
   backward is the same sum of the gradients, as ``psum``'s transpose), for
   cross-shard norms, the SE regulariser and ``dist_take_rows``.
@@ -29,7 +31,26 @@ back. The collectives:
 
 Shard ``s`` is the rank at position ``s`` of ``order`` (default: rank order);
 ``parallel/multihost.py`` gives an order that keeps ring neighbours on one
-host.
+host. A ``Comm`` over a sub-group (one axis of ``parallel/mesh.py:
+DeviceMesh``) takes the ``torch.distributed`` group and, as ``order``, the
+global ranks of its members in axis order; ``world_size`` is then the
+group's size and ``rank`` stays the global rank. Point-to-point peers are
+global ranks even within a group; each ``Comm`` keeps its own counts.
+
+The model axis of the 2-D graph x model mesh (``parallel/distgraph.py``)
+adds four differentiable moves over a ``Comm``, Megatron's column-parallel
+pair and its inverse, for tensors that every rank of the group holds whole
+and computes alike downstream:
+
+- ``copy_to(t, comm)``: the identity, whose backward sums the gradient over
+  the group (each rank's gradient is a part, as after a column slice of a
+  matmul's weight);
+- ``reduce_from(t, comm)``: the sum over the group, whose backward is the
+  identity (every rank computes the downstream loss whole);
+- ``split_cols(t, comm)``: this shard's column slice, whose backward
+  all-gathers the slices' gradients;
+- ``gather_cols(t, comm)``: the shards' column slices side by side, whose
+  backward takes this shard's slice of the gradient and sums nothing.
 """
 from __future__ import annotations
 
@@ -43,16 +64,24 @@ TRANSPORTS = ("nccl", "gloo")
 
 class Comm:
     def __init__(self, rank: int, world_size: int, device, transport: str,
-                 order: Optional[Sequence[int]] = None):
+                 order: Optional[Sequence[int]] = None, group=None):
         if transport not in TRANSPORTS:
             raise ValueError(f"transport must be one of {TRANSPORTS}, got {transport!r}")
         self.rank, self.world_size = rank, world_size
         self.device = torch.device(device)
         self.transport = transport
+        self.group = group
         self.order: List[int] = list(range(world_size) if order is None else order)
-        if sorted(self.order) != list(range(world_size)):
+        if group is None and world_size > 1 and sorted(self.order) != list(range(world_size)):
             raise ValueError(f"order {self.order} is not a permutation of the ranks")
+        if len(set(self.order)) != world_size or rank not in self.order:
+            raise ValueError(f"order {self.order} is not {world_size} distinct ranks "
+                             f"holding rank {rank}")
         self.shard = self.order.index(rank)
+        # position s of a collective's output (the group's rank order, which
+        # sorts the global ranks) holding shard s's part
+        ranked = sorted(self.order)
+        self._to_shard_order = [ranked.index(r) for r in self.order]
         # pinned host buffers of the gloo transport, by (role, shape, dtype)
         self._host: Dict[Tuple, torch.Tensor] = {}
         #: collectives started, and ring buckets that had no edge to launch on
@@ -78,11 +107,11 @@ class Comm:
             return t
         self.counts["all_reduces"] += 1
         if not self.staged:
-            dist.all_reduce(t)
+            dist.all_reduce(t, group=self.group)
             return t
         h = self._host_buffer("reduce", t)
         h.copy_(t)  # waits for the card
-        dist.all_reduce(h)
+        dist.all_reduce(h, group=self.group)
         t.copy_(h)
         return t
 
@@ -95,17 +124,17 @@ class Comm:
         shape = (self.world_size,) + tuple(t.shape)
         if self.transport == "nccl":
             out = torch.empty(shape, dtype=t.dtype, device=t.device)
-            dist.all_gather_into_tensor(out, t)
+            dist.all_gather_into_tensor(out, t, group=self.group)
         else:
             send, recv = t, torch.empty(shape, dtype=t.dtype)
             if self.staged:
                 send = self._host_buffer("gather", t)
                 send.copy_(t)  # waits for the card
                 recv = self._host_buffer("gathered", recv)
-            dist.all_gather(list(recv.unbind(0)), send)
+            dist.all_gather(list(recv.unbind(0)), send, group=self.group)
             out = recv.to(t.device, copy=True)  # the host buffer is reused
-        if self.order != sorted(self.order):  # rank order -> shard order
-            out = out[torch.tensor(self.order, device=out.device)]
+        if self.order != sorted(self.order):  # group rank order -> shard order
+            out = out[torch.tensor(self._to_shard_order, device=out.device)]
         return out
 
     def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
@@ -114,11 +143,11 @@ class Comm:
             return t
         return _AllReduceSum.apply(t, self)
 
-    def ring_shift(self, t: torch.Tensor) -> "RingShift":
-        """Starts sending ``t`` to the previous shard and receiving the next
-        shard's block of the same shape and type."""
-        nxt = self.order[(self.shard + 1) % self.world_size]
-        prv = self.order[(self.shard - 1) % self.world_size]
+    def ring_shift(self, t: torch.Tensor, offset: int = 1) -> "RingShift":
+        """Starts sending ``t`` to shard ``shard - offset`` and receiving the
+        block of shard ``shard + offset``, of the same shape and type."""
+        nxt = self.order[(self.shard + offset) % self.world_size]
+        prv = self.order[(self.shard - offset) % self.world_size]
         t = t.contiguous()
         self.counts["ring_shifts"] += 1
         if self.staged:
@@ -126,8 +155,10 @@ class Comm:
             send.copy_(t)
         else:
             send, recv = t, torch.empty_like(t)
-        works = dist.batch_isend_irecv([dist.P2POp(dist.isend, send, prv),
-                                        dist.P2POp(dist.irecv, recv, nxt)])
+        # the peers are global ranks, with or without a group
+        works = dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, send, prv, group=self.group),
+            dist.P2POp(dist.irecv, recv, nxt, group=self.group)])
         return RingShift(works, recv, t.device if self.staged else None)
 
 
@@ -154,3 +185,79 @@ class _AllReduceSum(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return ctx.comm.all_reduce_sum_(grad.contiguous().clone()), None
+
+
+def copy_to(t: torch.Tensor, comm: Comm) -> torch.Tensor:
+    """``t``; its gradient summed over ``comm`` (module docstring)."""
+    return t if comm.world_size == 1 else _CopyTo.apply(t, comm)
+
+
+def reduce_from(t: torch.Tensor, comm: Comm) -> torch.Tensor:
+    """The sum of ``t`` over ``comm``; its gradient passed on as it is."""
+    return t if comm.world_size == 1 else _ReduceFrom.apply(t, comm)
+
+
+def split_cols(t: torch.Tensor, comm: Comm) -> torch.Tensor:
+    """Shard ``comm.shard``'s slice of the columns of ``[n, d]`` ``t``
+    (``d`` a multiple of the group's size)."""
+    return t if comm.world_size == 1 else _SplitCols.apply(t, comm)
+
+
+def gather_cols(t: torch.Tensor, comm: Comm) -> torch.Tensor:
+    """``[n, d * S]``: the shards' ``[n, d]`` column slices in shard order."""
+    return t if comm.world_size == 1 else _GatherCols.apply(t, comm)
+
+
+def own_cols(t: torch.Tensor, comm: Comm) -> torch.Tensor:
+    """Shard ``comm.shard``'s slice of the columns of ``[n, d]`` ``t``, outside
+    autograd."""
+    w = t.shape[1] // comm.world_size
+    return t[:, comm.shard * w: (comm.shard + 1) * w].contiguous()
+
+
+def _cat_cols(t: torch.Tensor, comm: Comm) -> torch.Tensor:
+    parts = comm.all_gather(t)  # [S, n, w]
+    return parts.permute(1, 0, 2).reshape(t.shape[0], -1)
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, comm):
+        ctx.comm = comm
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.comm.all_reduce_sum_(grad.contiguous().clone()), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, comm):
+        return comm.all_reduce_sum_(t.clone())
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _SplitCols(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, comm):
+        ctx.comm = comm
+        return own_cols(t, comm)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _cat_cols(grad.contiguous(), ctx.comm), None
+
+
+class _GatherCols(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, comm):
+        ctx.comm = comm
+        return _cat_cols(t, comm)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return own_cols(grad, ctx.comm), None

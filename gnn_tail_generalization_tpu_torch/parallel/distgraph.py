@@ -31,6 +31,25 @@ path always takes its Pallas plans, ``ops/spmm.py:72-77``), under
 ``gather`` the plain version; on a CPU tensor the kernel wrappers run the
 plain version.
 
+The 2-D graph x model mesh (``model_comm``; JAX ``model_axis``,
+``:407-414``, ``:469-471``, ``shard_params :695-719``): ``comm`` is the graph
+axis (its ring order the graph coordinate) and the buckets are those of the
+graph axis alone. Activations stay whole on every rank of the model axis;
+only what JAX shards over ``model`` is cut into column slices: the SE tables
+and the Dense kernels (``nn/gcn.py``, ``nn/mlp.py``) and the ring's operand.
+``dist_spmm`` rings this model shard's ``d / M`` columns of ``x`` through
+the bucket kernels and all-gathers the result over the model axis
+(``dist_spmm_cols`` when the caller already holds the slice); where ``M``
+does not divide ``d`` the operand stays whole, as in JAX. ``dist_take_rows``
+follows the same rule. The moves are ``parallel/comm.py``'s ``split_cols``
+and ``gather_cols``, whose backward takes the rank's own column slice of the
+gradient and sums nothing: every model rank computes the loss whole.
+
+``ShardedGraph`` is the row interface both this ``DistGraph`` and
+``parallel/hier.py:HierGraph`` give the model and the loops: ``comm``,
+``rows_per_shard``, ``n_node``, ``n_node_pad``, ``row0``, ``local_rows``,
+``deg_in``/``deg_out``, ``to``, ``transpose`` and ``spmm``.
+
 The TPU plan arrays (``p_*``, ``pt_*``, ``_stack_bucket_plans``, chunking and
 striped padding) are not carried over: a CSR needs none of them.
 """
@@ -44,7 +63,7 @@ import torch
 
 from ..graph.core import RowSchedule, _csr, build_schedule, edge_rows, sorted_unique
 from ..ops import spmm_kernels as K
-from .comm import Comm
+from .comm import Comm, gather_cols, split_cols
 
 #: parameters whose rows are the graph's nodes: each rank holds its shard's
 #: rows (the JAX package's ``shard_params`` shards ``se``; ``input_embs``
@@ -104,21 +123,16 @@ class EdgeView:
                                    weight=self.weight.to(device))
 
 
-@dataclasses.dataclass(frozen=True)
-class DistGraph:
-    """Rank ``comm.shard``'s part of a row-sharded graph (module docstring).
-    ``edge_view``: only on forward graphs built ``with_edge_view``."""
+class ShardedGraph:
+    """One rank's rows of a graph sharded over ``comm`` (module docstring):
+    ``rows_per_shard`` rows from ``row0``, of the ``n_node_pad`` padded
+    nodes. Subclasses hold ``comm``, ``rows_per_shard``, ``n_node``,
+    ``n_node_pad``, ``deg_out`` and ``deg_in`` (this rank's rows), and give
+    ``spmm``, ``transpose`` and ``to``, and each answers what the loops ask
+    of its layout: ``has_edge_view``, ``has_loss_view`` and
+    ``teacher_only``."""
 
-    comm: Comm
-    buckets: Tuple[Bucket, ...]  # bucket (k, j) at position j
-    buckets_t: Tuple[Bucket, ...]
-    deg_out: torch.Tensor  # [rows_per_shard] float32
-    deg_in: torch.Tensor
-    n_node: int
-    n_node_pad: int
-    rows_per_shard: int
-    rb: int = 128
-    edge_view: Optional[EdgeView] = None
+    model_comm: Optional[Comm] = None
 
     @property
     def n_shards(self) -> int:
@@ -131,7 +145,62 @@ class DistGraph:
 
     @property
     def has_edge_view(self) -> bool:
+        """Whether it holds the canonical edge list graph dropout masks."""
+        raise NotImplementedError
+
+    @property
+    def has_loss_view(self) -> bool:
+        """Whether ``train/loops.py:final_agg_view`` builds the loss-masked
+        view of the last layer on this layout."""
+        raise NotImplementedError
+
+    @property
+    def teacher_only(self) -> bool:
+        """Whether only the TeacherGNN trains on this layout."""
+        raise NotImplementedError
+
+    def local_rows(self, t):
+        """This rank's rows of an array over all ``n_node_pad`` rows."""
+        return t[self.row0: self.row0 + self.rows_per_shard]
+
+    def spmm(self, x: torch.Tensor, method: str) -> torch.Tensor:
+        """``y = A @ x`` on this rank's rows, differentiable."""
+        raise NotImplementedError
+
+
+@dataclasses.dataclass(frozen=True)
+class DistGraph(ShardedGraph):
+    """Rank ``comm.shard``'s part of a row-sharded graph (module docstring).
+    ``edge_view``: only on forward graphs built ``with_edge_view``.
+    ``model_comm``: the model axis of a 2-D mesh, else None."""
+
+    comm: Comm
+    buckets: Tuple[Bucket, ...]  # bucket (k, j) at position j
+    buckets_t: Tuple[Bucket, ...]
+    deg_out: torch.Tensor  # [rows_per_shard] float32
+    deg_in: torch.Tensor
+    n_node: int
+    n_node_pad: int
+    rows_per_shard: int
+    rb: int = 128
+    edge_view: Optional[EdgeView] = None
+    model_comm: Optional[Comm] = None
+
+    @property
+    def has_edge_view(self) -> bool:
         return self.edge_view is not None
+
+    @property
+    def has_loss_view(self) -> bool:
+        return True
+
+    @property
+    def teacher_only(self) -> bool:
+        """The 2-D mesh trains the teacher only, as in the JAX package."""
+        return self.model_comm is not None
+
+    def spmm(self, x: torch.Tensor, method: str) -> torch.Tensor:
+        return dist_spmm(self, x, method)
 
     def transpose(self) -> "DistGraph":
         """A^T: the transposed bucket set and swapped degrees (no data
@@ -147,23 +216,36 @@ class DistGraph:
             deg_out=self.deg_out.to(device), deg_in=self.deg_in.to(device),
             edge_view=None if self.edge_view is None else self.edge_view.to(device))
 
-    def local_rows(self, t):
-        """This rank's rows of an array over all ``n_node_pad`` rows."""
-        return t[self.row0: self.row0 + self.rows_per_shard]
-
 
 def comm_of(g) -> Optional[Comm]:
-    """The communicator of a ``DistGraph``; None for a one-device graph."""
-    return g.comm if isinstance(g, DistGraph) else None
+    """The communicator of a sharded graph (the graph axis of a 2-D mesh);
+    None for a one-device graph."""
+    return g.comm if isinstance(g, ShardedGraph) else None
+
+
+def model_comm_of(g) -> Optional[Comm]:
+    """The model axis of a 2-D mesh's graph; None otherwise."""
+    return g.model_comm if isinstance(g, ShardedGraph) else None
+
+
+def model_cols(d: int, model_comm: Optional[Comm]) -> Optional[Comm]:
+    """``model_comm`` where its ranks split ``d`` columns between them (JAX
+    ``shard_params``' ``feat_ok``), else None: the width stays whole."""
+    if model_comm is None or model_comm.world_size == 1 or d % model_comm.world_size:
+        return None
+    return model_comm
 
 
 def build_dist_graph(edge_index: np.ndarray, n_node: int, comm: Comm,
                      edge_weight: Optional[np.ndarray] = None, *, rb: int = 128,
-                     with_edge_view: bool = False) -> DistGraph:
+                     with_edge_view: bool = False,
+                     model_comm: Optional[Comm] = None) -> DistGraph:
     """Rank ``comm.shard``'s ``DistGraph`` (on the CPU; ``.to(device)``)
     from the host edge list ``[2, E]`` that every rank holds whole.
     ``with_edge_view``: keep the canonical edge list and each CSR slot's
-    canonical edge id, for graph dropout (``masked_dist_graph``)."""
+    canonical edge id, for graph dropout (``masked_dist_graph``).
+    ``model_comm``: the model axis of a 2-D mesh (``comm`` its graph axis);
+    the buckets depend on the graph axis alone."""
     s, k = comm.world_size, comm.shard
     e = np.asarray(edge_index, np.int64)
     w = (np.ones(e.shape[1], np.float32) if edge_weight is None
@@ -201,7 +283,7 @@ def build_dist_graph(edge_index: np.ndarray, n_node: int, comm: Comm,
         deg_out=torch.from_numpy(deg_out[lo: lo + rows].copy()),
         deg_in=torch.from_numpy(deg_in[lo: lo + rows].copy()),
         n_node=n_node, n_node_pad=n_node_pad, rows_per_shard=rows, rb=rb,
-        edge_view=view)
+        edge_view=view, model_comm=model_comm)
 
 
 def _plain(indptr, indices, weight, x, schedule=None):
@@ -250,30 +332,54 @@ class _DistSpMM(torch.autograd.Function):
         return dx.to(ctx.x_dtype), None, None
 
 
-def dist_spmm(g: DistGraph, x: torch.Tensor, method: str = "auto") -> torch.Tensor:
-    """``y = A @ x`` on this rank's rows: ``x`` and ``y`` are
-    ``[rows_per_shard, d]``, this rank's shard of the padded node axis."""
+def _check_rows(g: ShardedGraph, x: torch.Tensor) -> None:
     if x.dim() != 2 or x.shape[0] != g.rows_per_shard:
         raise ValueError(f"x must be [{g.rows_per_shard}, d], this rank's rows of "
                          f"the {g.n_node_pad} padded nodes (pad_rows_np), got "
                          f"{tuple(x.shape)}")
-    return _DistSpMM.apply(x.contiguous(), g, method)
 
 
-def dist_take_rows(g: DistGraph, h: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+def dist_spmm(g: DistGraph, x: torch.Tensor, method: str = "auto") -> torch.Tensor:
+    """``y = A @ x`` on this rank's rows: ``x`` and ``y`` are
+    ``[rows_per_shard, d]``, this rank's shard of the padded node axis. On a
+    2-D mesh ``x`` is whole and the ring takes this model shard's columns
+    where the model axis divides ``d`` (module docstring)."""
+    _check_rows(g, x)
+    mc = model_cols(x.shape[1], g.model_comm)
+    if mc is None:
+        return _DistSpMM.apply(x.contiguous(), g, method)
+    return gather_cols(_DistSpMM.apply(split_cols(x, mc), g, method), mc)
+
+
+def dist_spmm_cols(g: DistGraph, x: torch.Tensor, method: str = "auto") -> torch.Tensor:
+    """``y = A @ x`` on a 2-D mesh from this model shard's column slice
+    ``x`` (``[rows_per_shard, d / M]``, e.g. the product with a column
+    slice of a kernel): the ring on the slice, all-gathered over the model
+    axis into the whole ``[rows_per_shard, d]``."""
+    _check_rows(g, x)
+    return gather_cols(_DistSpMM.apply(x.contiguous(), g, method), g.model_comm)
+
+
+def dist_take_rows(g: ShardedGraph, h: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Rows ``idx`` (global ids) of a row-sharded ``h``, the same ``[K, d]``
     on every rank: each rank fills the rows it owns, zeros elsewhere, and
-    one differentiable sum over the ranks assembles them (``:459-485``)."""
+    one differentiable sum over the ranks assembles them (``:459-485``). On
+    a 2-D mesh each model shard sums its columns (the rule of
+    ``dist_spmm``), and the slices are all-gathered."""
+    mc = model_cols(h.shape[1], g.model_comm)
+    if mc is not None:
+        h = split_cols(h, mc)
     local = idx.long() - g.row0
     ok = (local >= 0) & (local < g.rows_per_shard)
     vals = h[local.clamp(0, g.rows_per_shard - 1)]
     vals = torch.where(ok[:, None], vals, torch.zeros((), dtype=h.dtype, device=h.device))
-    return g.comm.all_reduce_sum(vals)
+    out = g.comm.all_reduce_sum(vals)
+    return out if mc is None else gather_cols(out, mc)
 
 
-def global_edge_view(g: DistGraph) -> EdgeView:
+def global_edge_view(g: ShardedGraph) -> EdgeView:
     """The canonical edge list the mask samplers draw over (``:488-512``)."""
-    if g.edge_view is None:
+    if not g.has_edge_view:
         raise ValueError("the DistGraph has no edge view: build it with "
                          "with_edge_view=True (prepare_sharded does under "
                          "apply_graph_dropout), and mask the forward graph, "
@@ -333,10 +439,44 @@ def shard_state_dict(state: Mapping[str, torch.Tensor], shard: int,
     return out
 
 
+def slice_model_cols(state: Mapping[str, torch.Tensor],
+                     like: Mapping[str, Tuple[int, ...]],
+                     shard: int) -> Dict[str, torch.Tensor]:
+    """``state`` cut to the shapes ``like`` of a 2-D rank's module: along
+    each dimension where a tensor is wider, model shard ``shard``'s slice
+    (the kernels' and SE tables' columns, JAX ``shard_params :708-716``);
+    a tensor of the right shape stays as it is."""
+    out = {}
+    for name, t in state.items():
+        for dim, (have, want) in enumerate(zip(t.shape, like[name])):
+            if have != want:
+                t = t.narrow(dim, shard * want, want)
+        out[name] = t.contiguous()
+    return out
+
+
+def gather_model_cols(state: Mapping[str, torch.Tensor],
+                      whole: Mapping[str, Tuple[int, ...]],
+                      comm: Comm) -> Dict[str, torch.Tensor]:
+    """The inverse of ``slice_model_cols`` over the model axis ``comm``: each
+    tensor narrower than its shape in ``whole`` all-gathered and joined
+    along that dimension in shard order. Collective: every model rank calls
+    it with the same names."""
+    out = {}
+    for name, t in state.items():
+        for dim, (have, want) in enumerate(zip(t.shape, whole[name])):
+            if have != want:
+                t = torch.cat(list(comm.all_gather(t.contiguous())), dim=dim)
+        out[name] = t
+    return out
+
+
 def sum_replicated_grads(model: torch.nn.Module, comm: Comm) -> None:
     """Sums the gradients of the replicated parameters over the ranks, in
     one all-reduce of their concatenation; the row-sharded ones stay the
-    rank's own. The optimizer then steps alike on every rank."""
+    rank's own. The optimizer then steps alike on every rank. On a 2-D mesh
+    ``comm`` is the graph axis: a column slice is replicated over it and
+    summed there, and nothing is summed over the model axis."""
     grads = [p.grad for name, p in model.named_parameters()
              if p.grad is not None and not is_row_sharded(name)]
     if not grads:

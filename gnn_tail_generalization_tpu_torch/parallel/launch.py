@@ -7,6 +7,8 @@ through a ``file://`` rendezvous in a fresh temporary directory (so that
 concurrent callers never race for a port), calls ``fn(comm, *args)`` in each
 with its ``parallel/comm.py:Comm``, and returns the results in rank order.
 ``fn`` must be a module-level function: the child imports it by name.
+With ``mesh=(shape, names)`` each rank gets, instead of its ``Comm``, the
+``parallel/mesh.py:DeviceMesh`` of that shape over the world.
 ``fn`` and ``args`` are pickled once into that directory, not through each
 process's pipe, so that the ranks start together (a child reads its pipe
 only after its imports, and a large payload would hold each ``start`` until
@@ -28,12 +30,13 @@ import pickle
 import tempfile
 import time
 import traceback
-from typing import Any, Callable, List
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
 from .comm import TRANSPORTS, Comm
+from .mesh import DeviceMesh
 
 
 def rank_device(rank: int, transport: str, device: str) -> torch.device:
@@ -56,7 +59,7 @@ def rank_device(rank: int, transport: str, device: str) -> torch.device:
 
 
 def _child(rank: int, world_size: int, transport: str, device: str,
-           root: str) -> None:
+           root: str, mesh) -> None:
     try:
         with open(os.path.join(root, "program.pkl"), "rb") as f:
             fn, args = pickle.load(f)  # written by this rank's parent
@@ -67,7 +70,8 @@ def _child(rank: int, world_size: int, transport: str, device: str,
             torch.cuda.set_device(dev)
         dist.init_process_group(transport, init_method=f"file://{root}/rendezvous",
                                 rank=rank, world_size=world_size)
-        out = fn(Comm(rank, world_size, dev, transport), *args)
+        comm = Comm(rank, world_size, dev, transport)
+        out = fn(comm if mesh is None else DeviceMesh(comm, *mesh), *args)
         dist.destroy_process_group()
         torch.save(out, os.path.join(root, f"result_{rank}.pt"))
     except BaseException:
@@ -81,7 +85,8 @@ def _child(rank: int, world_size: int, transport: str, device: str,
 
 
 def spawn(fn: Callable, world_size: int, transport: str, device: str,
-          *args: Any, timeout: float = 3600.0) -> List[Any]:
+          *args: Any, timeout: float = 3600.0,
+          mesh: Optional[Tuple[Sequence[int], Sequence[str]]] = None) -> List[Any]:
     """``[fn(comm_0, *args), ..., fn(comm_{S-1}, *args)]``, each in a
     process of its own (see the module docstring)."""
     if transport not in TRANSPORTS:
@@ -93,7 +98,7 @@ def spawn(fn: Callable, world_size: int, transport: str, device: str,
         with open(os.path.join(root, "program.pkl"), "wb") as f:
             pickle.dump((fn, args), f)
         procs = [ctx.Process(target=_child, args=(r, world_size, transport, device,
-                                                  root), daemon=True)
+                                                  root, mesh), daemon=True)
                  for r in range(world_size)]
         for p in procs:
             p.start()

@@ -12,17 +12,22 @@ The port of ``gnn_tail_generalization_tpu/parallel/multihost.py``:
   grouped by host, so that contiguous row shards, and therefore the ring's
   neighbours, sit on one host for all but one hop per host boundary (the
   JAX mesh's host-major device order, ``multihost.py:81-87``).
+- ``initialize_multihost(..., mesh=(shape, names))`` lays the ranks on a
+  ``parallel/mesh.py:DeviceMesh`` in that order, the last axis within a
+  host: under torchrun a ``(host, chip)`` mesh's host axis is the node, so
+  ``LOCAL_WORLD_SIZE`` must equal the mesh's last extent ``C``.
 """
 from __future__ import annotations
 
 import os
 import socket
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
 
 from .comm import Comm
+from .mesh import DeviceMesh
 
 
 def host_major_order(hosts: Sequence[str]) -> List[int]:
@@ -38,12 +43,16 @@ def host_major_order(hosts: Sequence[str]) -> List[int]:
 def initialize_multihost(transport: str, device: str = "cuda", *,
                          rank: Optional[int] = None,
                          world_size: Optional[int] = None,
-                         init_method: Optional[str] = None) -> Comm:
+                         init_method: Optional[str] = None,
+                         mesh: Optional[Tuple[Sequence[int], Sequence[str]]] = None
+                         ) -> Union[Comm, DeviceMesh]:
     """Joins the process group and returns this rank's ``Comm``, its ring in
     ``host_major_order``. With no ``rank``/``world_size``, both come from
     torchrun's environment and ``init_method`` defaults to ``env://``.
     ``device="cuda"`` takes card ``LOCAL_RANK`` (else ``rank``) modulo the
-    host's count; NCCL needs a card a rank on each host."""
+    host's count; NCCL needs a card a rank on each host. ``mesh``: return
+    the ``DeviceMesh`` of that shape instead, its last axis within a host
+    (raises unless each host holds that many ranks)."""
     if rank is None or world_size is None:
         try:
             rank, world_size = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
@@ -68,4 +77,14 @@ def initialize_multihost(transport: str, device: str = "cuda", *,
                                 rank=rank, world_size=world_size)
     hosts: List[Optional[str]] = [None] * world_size
     dist.all_gather_object(hosts, socket.gethostname())
-    return Comm(rank, world_size, dev, transport, order=host_major_order(hosts))
+    comm = Comm(rank, world_size, dev, transport, order=host_major_order(hosts))
+    if mesh is None:
+        return comm
+    shape, names = mesh
+    per_host = int(os.environ.get("LOCAL_WORLD_SIZE", world_size))
+    counts = {h: hosts.count(h) for h in hosts}
+    if per_host != shape[-1] or set(counts.values()) != {shape[-1]}:
+        raise ValueError(f"a mesh of shape {tuple(shape)} keeps its last axis on one "
+                         f"host: each host needs {shape[-1]} ranks (LOCAL_WORLD_SIZE="
+                         f"{per_host}, ranks a host {counts})")
+    return DeviceMesh(comm, shape, names)

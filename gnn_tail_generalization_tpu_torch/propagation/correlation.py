@@ -42,9 +42,9 @@ import torch.nn.functional as F
 from ..graph.core import Graph, build_graph, symmetrize
 from ..ops.spmm import spmm
 from ..parallel.comm import Comm
-from ..parallel.distgraph import DistGraph, build_dist_graph
+from ..parallel.distgraph import DistGraph, ShardedGraph, build_dist_graph
 
-Adj = Union[Graph, DistGraph]
+Adj = Union[Graph, ShardedGraph]
 
 
 def _normalized_edges(edge_index: np.ndarray, n_node: int):
@@ -84,7 +84,7 @@ def gen_normalized_dist_adj(edge_index: np.ndarray, n_node: int, comm: Comm,
 
 def _rows(adj: Adj) -> int:
     """The rows of ``adj`` that this process holds."""
-    return adj.rows_per_shard if isinstance(adj, DistGraph) else adj.n_node
+    return adj.rows_per_shard if isinstance(adj, ShardedGraph) else adj.n_node
 
 
 def general_outcome_correlation(
@@ -109,7 +109,7 @@ def _idx_mask(idx: torch.Tensor, n: int, adj: Optional[Adj] = None
               ) -> torch.Tensor:
     """[n, 1] float 0/1 mask of the rows ``idx``; on a ``DistGraph``
     ``adj``, of the global rows ``idx`` that are this rank's n rows."""
-    if isinstance(adj, DistGraph):
+    if isinstance(adj, ShardedGraph):
         idx = idx.long() - adj.row0
         idx = idx[(idx >= 0) & (idx < n)]
     return torch.zeros(n, 1, device=idx.device).index_fill_(0, idx, 1.0)
@@ -175,7 +175,7 @@ def double_correlation_autoscale(
         spmm_method=spmm_method)
     m_r = _idx_mask(residual_idx, y0.shape[0], A1)
     total = (m_r * y0.abs()).sum()
-    if isinstance(A1, DistGraph):
+    if isinstance(A1, ShardedGraph):
         A1.comm.all_reduce_sum_(total)
     orig_diff = total / residual_idx.shape[0]
     scale = orig_diff / resid.abs().sum(dim=1, keepdim=True)

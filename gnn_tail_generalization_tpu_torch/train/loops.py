@@ -26,7 +26,10 @@ graph-dropout masks and edgewise pairs from one more each).
 
 Sharded (``data`` from ``data/datasets.py:prepare_sharded``, one rank's
 rows and its ``DistGraph``): every phase runs, each rank calling it with the
-same arguments. The teacher as ``train_teacher`` says. The students' and
+same arguments. The 2-D graph x model mesh (``prepare_sharded(...,
+model_axis=...)``) and the two-level layout (``prepare_hier``, a
+``parallel/hier.py:HierGraph``) train the teacher only, as in the JAX
+package. The teacher as ``train_teacher`` says. The students' and
 part 1's parameters are replicated and so is every batch: ``make_take_rows``
 gathers the batch's rows of ``x``, the SE table, the labels and the masks
 from their owners (``dist_take_rows``), the same rows on every rank. So the
@@ -56,8 +59,10 @@ from ..models.semlp import GraphMLP, SEMLPPart1, SEMLPPart2, neighbor_contrastiv
 from ..models.teacher import TeacherGNN
 from ..nn.norms import norm_applies
 from ..ops.topk_attention import dist_latent_replace
-from ..parallel.distgraph import (DistGraph, build_dist_graph, dist_take_rows,
-                                  shard_state_dict, sum_replicated_grads)
+from ..parallel.distgraph import (DistGraph, ShardedGraph, build_dist_graph,
+                                  dist_take_rows, gather_model_cols, model_comm_of,
+                                  shard_state_dict,
+                                  slice_model_cols, sum_replicated_grads)
 from ..propagation import correlation as corr
 from ..utils.device import resolve_device
 from .evalutil import headtail_accuracies, masked_accuracy
@@ -128,7 +133,9 @@ def final_agg_view(cfg: Config, data: PreparedData
     row-masked NLL — no edgewise loss, no cross-row norm trick, no graph
     dropout, and a real nodewise loss. On a ``DistGraph`` the view is a
     second ``DistGraph`` over the train-dst edges that keeps the full
-    graph's degree vectors (JAX ``loops.py:118-129``)."""
+    graph's degree vectors and model axis (JAX ``loops.py:118-129``). A
+    ``HierGraph`` has none, as in JAX (``:103-108``): the view only saves
+    time, and the loss and gradients are the same without it."""
     if not (cfg.optimize_final_layer_agg
             and cfg.has_loss_component_nodewise
             and not cfg.has_loss_component_edgewise
@@ -137,17 +144,21 @@ def final_agg_view(cfg: Config, data: PreparedData
     if norm_applies(cfg.type_trick):
         return None
     g, e = data.graph, data.edge_index
+    if isinstance(g, ShardedGraph) and not g.has_loss_view:
+        return None
     m = np.zeros(g.n_node, bool)
     m[np.asarray(data.train_idx)] = True
     if isinstance(g, DistGraph):
-        sub = build_dist_graph(e[:, m[e[1]]], g.n_node, g.comm, rb=g.rb)
+        sub = build_dist_graph(e[:, m[e[1]]], g.n_node, g.comm, rb=g.rb,
+                               model_comm=g.model_comm)
         return dataclasses.replace(sub, deg_in=g.deg_in, deg_out=g.deg_out)
     return loss_masked_view(g, e, m)
 
 
-def _dist_graph_of(data: PreparedData) -> Optional[DistGraph]:
-    """The ``DistGraph`` of data from ``prepare_sharded``, else None."""
-    return data.graph if isinstance(data.graph, DistGraph) else None
+def _dist_graph_of(data: PreparedData) -> Optional[ShardedGraph]:
+    """The sharded graph of data from ``prepare_sharded`` or
+    ``prepare_hier``, else None."""
+    return data.graph if isinstance(data.graph, ShardedGraph) else None
 
 
 def _n_global(data: PreparedData) -> int:
@@ -206,7 +217,10 @@ def _teacher_model(cfg: Config, seed: int, init_state: Optional[Mapping[str, Any
     ``seed`` on every rank, with the SE tables over all ``n_node_pad`` rows
     and their padding rows zeroed (JAX ``loops.py:216-229``), and the rank
     keeps its rows, so the start does not depend on the number of shards;
-    ``init_state`` is then the rank's state (``utils/convert.py``)."""
+    ``init_state`` is then the rank's state (``utils/convert.py``). On a
+    2-D mesh the rank also keeps its model shard's columns of the
+    column-parallel kernels and SE tables, of ``init_state`` too where it
+    holds whole ones."""
     gen = torch.Generator().manual_seed(seed)
     if g is None:
         model = TeacherGNN(cfg, generator=gen)
@@ -220,10 +234,15 @@ def _teacher_model(cfg: Config, seed: int, init_state: Optional[Mapping[str, Any
             if name.rsplit(".", 1)[-1] == "se":
                 t[g.n_node:] = 0.0
         init_state = shard_state_dict(full, g.comm.shard, g.n_shards)
+    mc = model_comm_of(g)
     with torch.device("meta"):
-        model = TeacherGNN(dataclasses.replace(cfg, N_nodes=g.rows_per_shard))
-    model.load_state_dict({k: torch.as_tensor(v).clone() for k, v in init_state.items()},
-                          assign=True)
+        model = TeacherGNN(dataclasses.replace(cfg, N_nodes=g.rows_per_shard),
+                           model_comm=mc)
+    state = {k: torch.as_tensor(v).clone() for k, v in init_state.items()}
+    if mc is not None:
+        state = slice_model_cols(
+            state, {k: v.shape for k, v in model.state_dict().items()}, mc.shard)
+    model.load_state_dict(state, assign=True)
     return model
 
 
@@ -248,7 +267,7 @@ def teacher_step_grads(cfg: Config, model: TeacherGNN, g: Union[Graph, DistGraph
     if edgewise is not None:
         # the full (unmasked) embedding (trainer:418)
         l_struct, linkp = edgewise(common)
-    comm = g.comm if isinstance(g, DistGraph) else None
+    comm = g.comm if isinstance(g, ShardedGraph) else None
     n_shards = 1
     if comm is not None:
         n_shards = comm.world_size
@@ -298,7 +317,8 @@ def train_teacher(
     draws from a stream of each rank's own, and graph-dropout masks and
     edgewise pairs from streams seeded alike on every rank. ``init_state``
     is then the rank's state; ``save_dir`` writes the sharded checkpoint
-    directories beside the one-device paths (``train/checkpoint.py``)."""
+    directories beside the one-device paths (``train/checkpoint.py``; on a
+    2-D mesh the graph axis's, the columns gathered first)."""
     epochs = cfg.epochs if epochs is None else epochs
     dist_g = _dist_graph_of(data)
     comm = None if dist_g is None else dist_g.comm
@@ -397,11 +417,20 @@ def train_teacher(
 
         layout = (None if dist_g is None else
                   ShardLayout(comm, dist_g.n_node, dist_g.n_node_pad))
-        save_train_state(f"{save_dir}/teacherGNN.pt", params=final, epoch=epochs,
-                         layout=layout)
+        states = {"teacherGNN": final}
         if keep_best and best_state is not None:
-            save_train_state(f"{save_dir}/best-teacherGNN.pt", params=best_state,
-                             epoch=epochs, layout=layout)
+            states["best-teacherGNN"] = best_state
+        mc = model_comm_of(dist_g)
+        if mc is not None:  # the graph axis's layout: whole columns, model shard 0 writes
+            with torch.device("meta"):
+                whole = TeacherGNN(dataclasses.replace(
+                    cfg, N_nodes=dist_g.rows_per_shard)).state_dict()
+            states = {k: gather_model_cols(st, {n: t.shape for n, t in whole.items()}, mc)
+                      for k, st in states.items()}
+        if mc is None or mc.shard == 0:
+            for name, st in states.items():
+                save_train_state(f"{save_dir}/{name}.pt", params=st, epoch=epochs,
+                                 layout=layout)
     return TrainResult(
         columns=cols,
         records=records,
@@ -749,8 +778,12 @@ def run_experiment(cfg: Config, data: PreparedData, seed: int = 0,
     -> part 2; the result is part 2's, with the teacher's and part 1's
     results under ``extra``. LP returns ``run_pure_lp``'s dict. Every
     phase runs on a rank of a sharded run too (module docstring)."""
-    device = _rank_device(device, _dist_graph_of(data))
+    dg = _dist_graph_of(data)
+    device = _rank_device(device, dg)
     tw = cfg.train_which
+    if dg is not None and tw != "TeacherGNN" and dg.teacher_only:
+        raise ValueError(f"the 2-D graph x model mesh and the two-level layout "
+                         f"train the TeacherGNN, not {tw!r} (as in the JAX package)")
     if tw == "TeacherGNN":
         return train_teacher(cfg, data, seed, epochs, log_every, device=device)
     if tw == "LP":

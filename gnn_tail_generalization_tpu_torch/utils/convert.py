@@ -17,6 +17,7 @@ layer mixtures' ``link_psi`` ...) keeps its name and layout.
 """
 from __future__ import annotations
 
+import dataclasses
 import re
 from typing import Dict, Mapping, Optional, Tuple
 
@@ -42,7 +43,8 @@ from ..nn.gcn import GCNConv
 from ..nn.mlp import MLP, BlockResMLP
 from ..nn.norms import BatchNorm, GroupNorm, NormLayer
 from ..nn.residual import DenseConnection
-from ..parallel.distgraph import shard_state_dict
+from ..parallel.comm import Comm
+from ..parallel.distgraph import shard_state_dict, slice_model_cols
 from ..propagation.cs import CSLinear, CSMLp
 
 # leaf name -> (port parameter name, transpose?)
@@ -172,7 +174,8 @@ def state_dict_from_flax(flat: Mapping[str, np.ndarray], module: nn.Module
 
 def params_from_jax(flat: Mapping[str, np.ndarray], cfg: Config,
                     batch_stats: Optional[Mapping[str, np.ndarray]] = None, *,
-                    shard: int = 0, n_shards: int = 1) -> Dict[str, torch.Tensor]:
+                    shard: int = 0, n_shards: int = 1, model_shard: int = 0,
+                    n_model: int = 1) -> Dict[str, torch.Tensor]:
     """The state_dict of ``TeacherGNN(cfg)`` holding the flax parameters and,
     where the model has batch norms, the flax ``batch_stats`` (flat, as
     ``flat``) in their running-statistics buffers.
@@ -181,12 +184,26 @@ def params_from_jax(flat: Mapping[str, np.ndarray], cfg: Config,
     (``cfg.N_nodes`` its ``n_node_pad``) as rank ``shard``'s state: rows
     ``shard * R`` to ``(shard + 1) * R`` of the SE tables (and learnable
     inputs), everything else whole (``parallel/distgraph.py:
-    shard_state_dict``)."""
+    shard_state_dict``); a rank of the two-level layout takes its rows as a
+    1-D rank of ``S = H * C`` shards (shard ``h * C + c``).
+
+    ``n_model`` > 1: a rank of the 2-D graph x model mesh (``shard`` its
+    graph coordinate), which also takes model shard ``model_shard``'s
+    columns of the column-parallel kernels and SE tables
+    (``parallel/distgraph.py:slice_model_cols``)."""
     flat = {**flat, **(batch_stats or {})}
     with torch.device("meta"):  # names and shapes only, no memory
         model = TeacherGNN(cfg)
     state = state_dict_from_flax(flat, model)
-    return state if n_shards == 1 else shard_state_dict(state, shard, n_shards)
+    if n_shards > 1:
+        state = shard_state_dict(state, shard, n_shards)
+    if n_model > 1:
+        with torch.device("meta"):
+            rank = TeacherGNN(dataclasses.replace(cfg, N_nodes=cfg.N_nodes // n_shards),
+                              model_comm=Comm(model_shard, n_model, "cpu", "gloo"))
+        state = slice_model_cols(state, {k: v.shape for k, v in rank.state_dict().items()},
+                                 model_shard)
+    return state
 
 
 def linkpred_params_from_jax(flat: Mapping[str, np.ndarray],

@@ -460,23 +460,38 @@ def test_cli_sharded_prints_the_one_device_columns(capfd):
     assert out_two.count("Ep001") == 1  # rank 0 prints, the others do not
 
 
-def _two_d_mesh():
+def _two_d_mesh_students():
+    """A student on the 2-D graph x model mesh (here (1, 2) as rank 0 sees
+    it, no collective before the refusal)."""
+    from gnn_tail_generalization_tpu_torch.parallel.mesh import GRAPH_MODEL, DeviceMesh
+
     _, ct, arrays = teacher_setup(90, "Residual")
-    tds.prepare_sharded(tds.NodeData(**arrays), ct, fake_comm(0), rb=RB,
-                        model_axis="model")
+    pd = tds.prepare_sharded(tds.NodeData(**arrays), ct,
+                             DeviceMesh.layout((1, 2), GRAPH_MODEL, 0), rb=RB,
+                             model_axis="model")
+    tloops.run_experiment(ct, pd, epochs=1, device="cpu")
 
 
 CLI = ["--dataset=TEXAS", "--epochs=1", "--device=cpu"]
 # what sharding still refuses: link prediction on the CLI (the JAX CLI does
-# not shard it either; train_linkpred(comm=...) does), and the layouts that
-# are not ported yet (ROADMAP A12b items 4-5)
+# not shard it either; train_linkpred(comm=...) does); on the two-level
+# layout graph dropout (it needs the DistGraph edge view, as JAX asserts),
+# any train_which but the teacher (as the JAX CLI) and a --hier_mesh that is
+# not HxC; the students on the 2-D mesh (JAX asserts a 1-D mesh)
 REFUSED = {
     "linkpred": (lambda: tmain.main(CLI + ["--n_devices=2", "--exp_mode=I2_GTL",
                                            "--task=linkp"]),
                  ValueError, r"train_linkpred\(comm=\.\.\.\)"),
-    "hier_mesh": (lambda: tmain.main(CLI + ["--hier_mesh=2x2"]),
-                  NotImplementedError, "A12b"),
-    "2d_mesh": (_two_d_mesh, NotImplementedError, "A12b item 4"),
+    "hier_mesh": (lambda: tmain.main(CLI + ["--hier_mesh=2x2", "--apply_graph_dropout=1",
+                                            "--force_set_to_best_config=0",
+                                            "--type_trick=DropEdge"]),
+                  ValueError, "edge view"),
+    "hier_mesh_semlp": (lambda: tmain.main(CLI + ["--hier_mesh=2x2",
+                                                  "--train_which=SEMLP"]),
+                        ValueError, "trains the TeacherGNN"),
+    "hier_mesh_malformed": (lambda: tmain.main(CLI + ["--hier_mesh=2"]),
+                            ValueError, "HxC"),
+    "2d_mesh": (_two_d_mesh_students, ValueError, "train the TeacherGNN"),
 }
 
 

@@ -441,6 +441,22 @@ for tw in ("SEMLP", "StudentBaseMLP", "GraphMLP", "LP"):
 with tempfile.TemporaryDirectory() as root:
     loops.train_teacher(cfg, pd1, epochs=1, save_dir=root, device="cpu")
     assert checkpoint.load_train_state(root + "/teacherGNN.pt")["epoch"] == 1
+from gnn_tail_generalization_tpu_torch.parallel.hier import (
+    build_hier_graph, hier_comm_stats, hier_spmm)
+from gnn_tail_generalization_tpu_torch.parallel.mesh import (
+    GRAPH_MODEL, HOST_CHIP, DeviceMesh)
+hm = DeviceMesh(one, (1, 1), HOST_CHIP)  # one rank: no group, no collective
+hg = build_hier_graph(e60, 60, hm, rb=8)
+assert torch.allclose(hier_spmm(hg, h), dist_spmm(dg, h), atol=1e-6)
+assert hier_comm_stats(hg)["flat_ring_rows_per_spmm"] == 0
+cfg = build_config(dataset="", train_which="TeacherGNN", N_nodes=80, num_feats=12,
+                   num_classes=3, dim_hidden=8, whetherHasSE="111")
+res = loops.train_teacher(cfg, datasets.prepare_hier(data, cfg, hm, rb=8), epochs=1,
+                          device="cpu")
+assert np.isfinite(res.records).all()
+pd2 = datasets.prepare_sharded(data, cfg, DeviceMesh(one, (1, 1), GRAPH_MODEL), rb=8,
+                               model_axis="model")
+assert np.isfinite(loops.train_teacher(cfg, pd2, epochs=1, device="cpu").records).all()
 assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 print("NO_JAX_OK")
 """
