@@ -1,14 +1,17 @@
 """Drive the PyTorch port's teacher, trick zoo, Cold Brew student, label
 propagation, link-prediction, self-supervised baseline, row-sharded (the
-teacher, the students, LP and C&S, link prediction) and two-axis (host x
-card, graph x model) paths on one CUDA card.
+teacher, the students, LP and C&S, link prediction), two-axis (host x
+card, graph x model) and edge label propagation paths, and its host
+library, on one CUDA card.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught):
 1. environment: the card's name and power limit, torch/CUDA/nvcc versions,
    and the build of the CUDA kernels (``gnn_tail_generalization_tpu_torch/
-   csrc/*.cu``, built into ``gnn_tail_generalization_tpu_torch/_build/``);
+   csrc/*.cu``, built into ``gnn_tail_generalization_tpu_torch/_build/``)
+   and of the host library (``native/graph_prep.cpp``, by g++, into the
+   same directory);
 2. each kernel against its plain PyTorch version on the card, on each CSR's
    row schedule: the bench-shape power-law graph (169,343 nodes, 2,501,571
    edges after the loader pipeline), forward and transposed CSR, d=256 and
@@ -193,12 +196,33 @@ Phases (any failure exits non-zero; nothing is caught):
    the hier intra ring and of one halo exchange; (v) ``main --hier_mesh=2x2
    --epochs=2`` prints the one-device columns. Phase 12's seconds are
    printed.
+13. the host library (``native/graph_prep.cpp``, built by g++ into
+   ``_build/``) and edge label propagation: (i) the plain code of the two
+   slow host builds by its parts (``build_dist_graph`` at the citation2
+   shape, S = 2: the lexsort, the gathers and degrees, each rank's shard
+   masks, each bucket's ``_csr`` and the row schedules; and
+   ``gen_baseline_embs``'s ``standard_pipeline`` steps and ``build_graph``),
+   then the native builds against their plain versions, timed and bit for
+   bit: both ranks' buckets at citation2, every rank's buckets and edge view
+   of the slice at S = 4, ``_csr`` forward and transposed on phase 7's
+   message edges, and ``build_edge_graph`` of the bench graph's 1,166,243
+   edges at ``max_degree`` 256 and uncapped; (ii) ``run_logit_lp`` and
+   ``run_emb_lp`` (d = 256) over that edge graph at the default cap and 5
+   propagations, and ``run_xmc_lp`` (4,096 scored edges over the bench
+   graph): each launches the f32 kernel exactly once a propagation (xmc: a
+   column block of 128 a propagation) and is held to the same call on the
+   plain version within 1e-5 relative; the kernel against the plain version
+   on the edge graph at d = 1 and 512 with its ms, and the ms of a
+   propagation; ``train_linkpred`` with each ``edge_lp_mode`` (1 step, the
+   evaluation) on a 20,000-node split whose largest node is over the cap: a
+   finite MRR and exact launch counts. Phase 13's seconds are printed.
 
 Prints the kernels' JSON line (launches summed over every phase; phase 7's
 numbers under ``linkpred``, phase 8's under ``cli``, phase 9's under
 ``baselines``, phase 10's under ``sharded``, phase 11's under
-``sharded_students``, phase 12's under ``hier`` and ``mesh_2d``), then as
-the last line
+``sharded_students``, phase 12's under ``hier`` and ``mesh_2d``, phase
+13's under ``native``), the card's name and power limit, then as the last
+line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 import contextlib
@@ -305,6 +329,14 @@ HIER_CLI_ARGS = ["--dataset=ogbn-arxiv", "--hier_mesh=2x2", "--epochs=2",
                  "--device=cuda", "--log_every=1"]
 N_PROP = 50  # run_pure_lp's propagations
 LINK_EVAL_POS, LINK_STEPS = 1024, 2  # the sharded link runs' eval split, steps an epoch
+# phase 13: the host library and edge LP. build_dist_graph at citation2 at
+# S = 2, both ranks (rb: link_dist_graph's); edge LP at the default cap and
+# propagations, run_emb_lp at LinkPredConfig's encoder width, run_xmc_lp on
+# 4,096 scored edges (a [169343, ~4,096] f32 block, ~2.8 GB); evaluate on a
+# split whose largest node is over the cap
+NATIVE_DIST_S, NATIVE_DIST_RB = 2, 128
+ELP_CAP, ELP_PROPS, ELP_EMB_D, XMC_SCORED = 256, 5, 256, 4096
+ELP_SPLIT_NODES, ELP_SPLIT_EDGES, ELP_SPLIT_POS, ELP_SPLIT_NEG = 20_000, 100_000, 1000, 20
 
 
 def log(msg: str) -> None:
@@ -799,9 +831,9 @@ def propagation_phase(pd, card_name: str, totals: dict) -> dict:
             "cs_propagations_ms": cs_ms, "cs_pipeline_s": cs_s}
 
 
-def lp_split(n_node: int, n_edge: int):
+def lp_split(n_node: int, n_edge: int, n_pos: int = EVAL_POS, n_neg: int = EVAL_NEG):
     """bench_linkpred.py:49-97 with the port's host copies: a power-law graph,
-    EVAL_POS valid and EVAL_POS test positives with EVAL_NEG sampled
+    ``n_pos`` valid and ``n_pos`` test positives with ``n_neg`` sampled
     non-edges each, the other edges train; message edges = symmetrize(train).
     Returns (split_edge, message edges, host seconds)."""
     from gnn_tail_generalization_tpu_torch.data.synthetic import fast_powerlaw_graph
@@ -811,15 +843,15 @@ def lp_split(n_node: int, n_edge: int):
     t0 = time.perf_counter()
     e = fast_powerlaw_graph(n_node, n_edge, 0)
     perm = np.random.default_rng(0).permutation(e.shape[1])
-    val, test = e[:, perm[:EVAL_POS]], e[:, perm[EVAL_POS:2 * EVAL_POS]]
-    train = e[:, perm[2 * EVAL_POS:]]
+    val, test = e[:, perm[:n_pos]], e[:, perm[n_pos:2 * n_pos]]
+    train = e[:, perm[2 * n_pos:]]
     negs = sampling.rejection_sample_non_edges(
         np.random.default_rng(1), sampling.edge_keys(e, n_node), n_node,
-        2 * EVAL_POS * EVAL_NEG)
+        2 * n_pos * n_neg)
     split_edge = {
         "train": {"edge": train.T},
-        "valid": {"edge": val.T, "edge_neg": negs[:EVAL_POS * EVAL_NEG]},
-        "test": {"edge": test.T, "edge_neg": negs[EVAL_POS * EVAL_NEG:]},
+        "valid": {"edge": val.T, "edge_neg": negs[:n_pos * n_neg]},
+        "test": {"edge": test.T, "edge_neg": negs[n_pos * n_neg:]},
     }
     return split_edge, symmetrize(train, n_node), time.perf_counter() - t0
 
@@ -2530,11 +2562,346 @@ def two_axis_phase(card_name: str, totals: dict, s1: dict, slice_columns: list) 
     return summary
 
 
+def timed(fn):
+    """(fn(), host seconds)."""
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def same_arrays(a, b) -> bool:
+    """Bit-equal, dtype included (numpy arrays or tensors, or None twice)."""
+    if a is None or b is None:
+        return a is None and b is None
+    a, b = (np.asarray(x) for x in (a, b))
+    return a.dtype == b.dtype and np.array_equal(a, b)
+
+
+def same_buckets(got, want) -> bool:
+    """Two bucket sets equal slot for slot: indptr, indices, weight, ids."""
+    return len(got) == len(want) and all(
+        same_arrays(a.indptr, b[0]) and same_arrays(a.indices, b[1])
+        and same_arrays(a.weight, b[2]) and same_arrays(a.gid, b[3])
+        for a, b in zip(got, want))
+
+
+def plain_dist_parts(e: np.ndarray, n: int, s: int, rb: int):
+    """``build_dist_graph``'s plain code (unit weights, no edge view) timed by
+    its parts: the canonical lexsort and the gathers and degrees, once;
+    then for each rank the shard masks, each bucket's ``_csr`` and the row
+    schedules. Returns (seconds by part, each rank's (forward, transposed)
+    buckets as (indptr, indices, weight, None) tuples)."""
+    from gnn_tail_generalization_tpu_torch.graph.core import _csr, build_schedule
+    from gnn_tail_generalization_tpu_torch.parallel.distgraph import round_up
+
+    parts = {}
+    can, parts["lexsort_s"] = timed(lambda: np.lexsort((e[0], e[1])))
+    t0 = time.perf_counter()
+    ec, w = e[:, can], np.ones(e.shape[1], np.float32)
+    n_pad = round_up(n, s * rb)
+    rows = n_pad // s
+    for r in (0, 1):
+        np.bincount(ec[r], minlength=n_pad)
+    parts["gather_degrees_s"] = time.perf_counter() - t0
+    src_shard, dst_shard = ec[0] // rows, ec[1] // rows
+    buckets = []
+    for k in range(s):
+        lo = k * rows
+        t0 = time.perf_counter()
+        ids = {}
+        for row_end, mine, col_shard in ((1, np.flatnonzero(dst_shard == k), src_shard),
+                                         (0, np.flatnonzero(src_shard == k), dst_shard)):
+            ids[row_end] = [mine[col_shard[mine] == j] for j in range(s)]
+        parts[f"rank {k} masks_s"] = time.perf_counter() - t0
+        sets, csr_s, sched_s = [], [], 0.0
+        for row_end in (1, 0):
+            out = []
+            for j, b in enumerate(ids[row_end]):
+                (ip, idx, wt, _), sec = timed(lambda: _csr(
+                    ec[row_end, b] - lo, ec[1 - row_end, b] - j * rows, w[b], rows,
+                    impl="plain"))
+                csr_s.append(sec)
+                sched_s += timed(lambda: build_schedule(ip.numpy()))[1]
+                out.append((ip, idx, wt, None))
+            sets.append(out)
+        parts[f"rank {k} bucket_csr_s"] = csr_s
+        parts[f"rank {k} schedules_s"] = sched_s
+        buckets.append(tuple(sets))
+    return parts, buckets
+
+
+def host_builds(msg: np.ndarray, eb: np.ndarray, pd, card_name: str) -> tuple:
+    """Phase 13 (i): the plain host builds by their parts, then each native
+    build against its plain version, timed, bit for bit. Returns the
+    numbers and the bench graph's edges, which (ii) scores."""
+    from gnn_tail_generalization_tpu_torch import native
+    from gnn_tail_generalization_tpu_torch.data.synthetic import fast_powerlaw_graph
+    from gnn_tail_generalization_tpu_torch.graph.core import (
+        _csr, add_self_loops, build_graph, remove_self_loops, symmetrize)
+    from gnn_tail_generalization_tpu_torch.linkpred.edge_lp import build_edge_graph
+    from gnn_tail_generalization_tpu_torch.parallel.comm import Comm
+    from gnn_tail_generalization_tpu_torch.parallel.distgraph import build_dist_graph
+
+    out = {}
+    n = C2_NODES
+    log(f"  (i) build_dist_graph's plain parts at the citation2 shape ({msg.shape[1]} "
+        f"message edges), S = {NATIVE_DIST_S}, both ranks (one lexsort)")
+    parts, plain_buckets = plain_dist_parts(msg, n, NATIVE_DIST_S, NATIVE_DIST_RB)
+    shown = {k: np.round(v, 3).tolist() for k, v in parts.items()}
+    log(f"      plain parts, s: {shown} [{card_name}]")
+    dist = {"plain_parts_s": parts, "native_s": [], "plain_rank_s": []}
+    for k in range(NATIVE_DIST_S):
+        g, sec = timed(lambda: build_dist_graph(msg, n, Comm(k, NATIVE_DIST_S, "cpu", "gloo"),
+                                                rb=NATIVE_DIST_RB))
+        plain_s = (parts["lexsort_s"] + parts["gather_degrees_s"]
+                   + parts[f"rank {k} masks_s"] + sum(parts[f"rank {k} bucket_csr_s"])
+                   + parts[f"rank {k} schedules_s"])
+        equal = (same_buckets(g.buckets, plain_buckets[k][0])
+                 and same_buckets(g.buckets_t, plain_buckets[k][1]))
+        log(f"      rank {k}: native build_dist_graph {sec:.3f} s against the plain parts' "
+            f"{plain_s:.3f} s; buckets bit-equal: {equal} [{card_name}]")
+        assert equal, f"rank {k}: native buckets differ from the plain build"
+        dist["native_s"].append(sec)
+        dist["plain_rank_s"].append(plain_s)
+        del g
+    del plain_buckets
+    out["build_dist_graph_citation2"] = dist
+
+    e_slice = pd.edge_index
+    rb4 = DIST_PAD // DIST_BUCKET_SHARDS
+    slice4 = {"native_s": [], "plain_s": []}
+    for k in range(DIST_BUCKET_SHARDS):
+        comm = Comm(k, DIST_BUCKET_SHARDS, "cpu", "gloo")
+        got, want = [], []
+        for impl, keep, sink in (("native", got, slice4["native_s"]),
+                                 ("plain", want, slice4["plain_s"])):
+            g, sec = timed(lambda: build_dist_graph(e_slice, pd.graph.n_node, comm, rb=rb4,
+                                                    with_edge_view=True, impl=impl))
+            keep.append(g)
+            sink.append(sec)
+        a, b = got[0], want[0]
+        equal = all(same_buckets(x, [(y.indptr, y.indices, y.weight, y.gid) for y in z])
+                    for x, z in ((a.buckets, b.buckets), (a.buckets_t, b.buckets_t)))
+        equal = equal and all(same_arrays(getattr(a.edge_view, f), getattr(b.edge_view, f))
+                              for f in ("indptr", "indices", "weight"))
+        assert equal, f"slice S = {DIST_BUCKET_SHARDS} rank {k}: native differs from plain"
+    log(f"      the slice ({e_slice.shape[1]} edges) at S = {DIST_BUCKET_SHARDS}, every rank, "
+        f"with the edge view: native {np.round(slice4['native_s'], 3).tolist()} s, plain "
+        f"{np.round(slice4['plain_s'], 3).tolist()} s, buckets and views bit-equal "
+        f"[{card_name}]")
+    out["build_dist_graph_slice_s4"] = slice4
+
+    log("  (i) _csr on the citation2 message edges, forward and transposed")
+    csr = {}
+    w = np.ones(msg.shape[1], np.float32)
+    for tag, rows, cols in (("fwd", msg[1], msg[0]), ("transposed", msg[0], msg[1])):
+        got, nat_s = timed(lambda: _csr(rows, cols, w, n))
+        want, plain_s = timed(lambda: _csr(rows, cols, w, n, impl="plain"))
+        equal = all(same_arrays(a, b) for a, b in zip(got, want))
+        log(f"      {tag}: native {nat_s:.3f} s, plain {plain_s:.3f} s, bit-equal: {equal} "
+            f"[{card_name}]")
+        assert equal, f"_csr {tag}: native differs from plain"
+        csr[tag] = {"native_s": nat_s, "plain_s": plain_s}
+        del got, want
+    out["csr_citation2"] = csr
+
+    log("  (i) gen_baseline_embs's host part, plain: standard_pipeline's steps, then "
+        "build_graph")
+    base = {}
+    e1, base["symmetrize_s"] = timed(lambda: symmetrize(msg, n))
+    e2, base["remove_self_loops_s"] = timed(lambda: remove_self_loops(e1))
+    e3, base["add_self_loops_s"] = timed(lambda: add_self_loops(e2, n))
+    del e1, e2
+    _, base["build_graph_plain_s"] = timed(lambda: build_graph(
+        e3, n, with_dense=False, with_plans=True, impl="plain"))
+    log(f"      {e3.shape[1]} edges, s: {base} (the native build: phase 9's build_s) "
+        f"[{card_name}]")
+    out["baseline_host"] = base
+    del e3
+
+    log(f"  (i) build_edge_graph on the bench graph's {BENCH_EDGES} edges")
+    scored = np.ascontiguousarray(fast_powerlaw_graph(BENCH_NODES, BENCH_EDGES, 0).T)
+    inc = np.bincount(scored.reshape(-1))
+    eg = {}
+    for cap in (ELP_CAP, None):
+        got, nat_s = timed(lambda: build_edge_graph(scored, cap))
+        want, plain_s = timed(lambda: native.edge_graph(scored[:, 0], scored[:, 1], cap, 0,
+                                                        impl="plain"))
+        equal = same_arrays(got, want)
+        n_pairs = got.shape[1] - len(scored)
+        n_capped = int((inc > cap).sum()) if cap else 0
+        log(f"      max_degree={cap}: {n_pairs} pairs + {len(scored)} self loops, "
+            f"{n_capped} capped nodes (max incidence {inc.max()}); native {nat_s:.3f} s, "
+            f"plain {plain_s:.3f} s, bit-equal: {equal} [{card_name}]")
+        assert equal, f"build_edge_graph max_degree={cap}: native differs from plain"
+        eg[str(cap)] = {"pairs": n_pairs, "capped_nodes": n_capped, "native_s": nat_s,
+                        "plain_s": plain_s}
+        del got, want
+    out["edge_graph_bench"] = eg
+    return out, scored
+
+
+def xmc_blocks(scored: np.ndarray, n_node: int) -> int:
+    """run_xmc_lp's column blocks (of 128) over ``scored``: the distinct
+    destinations of its distinct edges."""
+    _, first = np.unique(scored[:, 0] * n_node + scored[:, 1], return_index=True)
+    return -(-len(np.unique(scored[first, 1])) // 128)
+
+
+@contextlib.contextmanager
+def edge_graph_hook(built: dict, adj=None):
+    """Around ``linkpred/edge_lp.py``'s runs: record the DAD edge graph a run
+    builds on the host, and its seconds, in ``built``; or, with ``adj``
+    given, hand the run that host graph in place of a new build (the plain
+    run after the kernel run, on the same edges)."""
+    from gnn_tail_generalization_tpu_torch.linkpred import edge_lp as elp
+
+    saved = elp.build_edge_graph, elp._dad_edge_graph
+
+    def record(edge_adj, m):
+        g, built["dad_s"] = timed(lambda: saved[1](edge_adj, m))
+        built["adj"] = g
+        return g
+
+    if adj is None:
+        elp._dad_edge_graph = record
+    else:
+        elp.build_edge_graph = lambda *a, **k: None
+        elp._dad_edge_graph = lambda edge_adj, m: adj
+    try:
+        yield
+    finally:
+        elp.build_edge_graph, elp._dad_edge_graph = saved
+
+
+def elp_run(tag, fn, expect, card_name, totals) -> tuple:
+    """One edge-LP entry point on the card, launches counted, then the same
+    call on the plain version (on the host graph the first call built, where
+    it built one), within REL_TOL relative. Returns its numbers and that
+    host graph."""
+    from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
+
+    built = {}
+    K.reset_launch_counts()
+    with edge_graph_hook(built):
+        out, run_s = timed(lambda: (fn(), torch.cuda.synchronize())[0])
+    counts = dict(K.LAUNCHES)
+    adj = built.get("adj")
+    with plain_kernels(), (contextlib.nullcontext() if adj is None
+                           else edge_graph_hook({}, adj)):
+        ref = fn()
+    err = rel_err(out, ref)
+    expect = {k: expect.get(k, 0) for k in K.LAUNCHES}
+    log(f"      {tag}: {tuple(out.shape)}, {run_s:.3f} s (host build included"
+        + (f", its DAD build {built['dad_s']:.3f} s" if adj is not None else "")
+        + f"), launches {counts}, vs the plain SpMM rel err {err:.3e} [{card_name}]")
+    assert torch.isfinite(out).all(), tag
+    assert counts == expect, f"{tag} launched {counts}, expected {expect}"
+    assert err <= REL_TOL, f"{tag}: rel err {err} > {REL_TOL}"
+    for k, v in counts.items():
+        totals[k] += v
+    return {"run_s": run_s, "dad_s": built.get("dad_s"), "launches": counts,
+            "rel_err": err}, adj
+
+
+def edge_lp_phase(scored, eb, card_name, totals, dev) -> dict:
+    """Phase 13 (ii): run_logit_lp, run_emb_lp and run_xmc_lp on the card,
+    the kernel against the plain version, the SpMM and a propagation on the
+    edge graph timed, and evaluate with each mode."""
+    from gnn_tail_generalization_tpu_torch.linkpred import edge_lp as elp
+    from gnn_tail_generalization_tpu_torch.linkpred import model as lpm
+    from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
+
+    out = {}
+    m = len(scored)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    log(f"  (ii) edge LP over the bench graph's {m} edges (max_degree {ELP_CAP}), "
+        f"{ELP_PROPS} propagations")
+    logits = torch.randn(m, generator=gen, device=dev)
+    out["run_logit_lp"], adj = elp_run(
+        "run_logit_lp", lambda: elp.run_logit_lp(scored, logits, m // 2, 3 * m // 4,
+                                                 max_degree=ELP_CAP),
+        {"spmm_csr_f32": ELP_PROPS}, card_name, totals)
+    h = torch.randn(BENCH_NODES, ELP_EMB_D, generator=gen, device=dev)
+    out["run_emb_lp"], _ = elp_run(
+        f"run_emb_lp (d = {ELP_EMB_D})",
+        lambda: elp.run_emb_lp(scored, h, max_degree=ELP_CAP),
+        {"spmm_csr_f32": ELP_PROPS}, card_name, totals)
+    del h
+    adj_d = adj.to(dev)
+    log(f"      the edge graph: {adj.n_edge} edges over {m} rows")
+    for d in (1, 2 * ELP_EMB_D):
+        x = torch.rand(m, d, generator=gen, device=dev)
+        r = compare("spmm_csr_f32", K.spmm_csr_f32, adj_d, x, False, card_name,
+                    f"edge graph d={d}", reps=5)
+        y0 = x.clamp(1e-9, 1 - 1e-9)
+        prop_ms = median_ms(lambda: elp.yag_propagate(adj_d, y0, y0, 0.995, ELP_PROPS),
+                            reps=3, warmup=1) / ELP_PROPS
+        log(f"      d={d}: {prop_ms:.4f} ms a propagation (SpMM, axpy, clamp) [{card_name}]")
+        out[f"spmm_d{d}"] = {**r, "propagation_ms": prop_ms}
+        del x, y0
+    del adj_d, adj
+    torch.cuda.empty_cache()
+
+    xs = scored[:XMC_SCORED]
+    blocks = xmc_blocks(xs, BENCH_NODES)
+    lx = torch.randn(XMC_SCORED, generator=gen, device=dev)
+    out["run_xmc_lp"], _ = elp_run(
+        f"run_xmc_lp ({XMC_SCORED} scored edges, {blocks} blocks of 128 columns, "
+        f"the {eb.shape[1]}-edge bench graph)",
+        lambda: elp.run_xmc_lp(eb, BENCH_NODES, xs, lx, XMC_SCORED // 2,
+                               3 * XMC_SCORED // 4),
+        {"spmm_csr_f32": blocks * ELP_PROPS}, card_name, totals)
+    torch.cuda.empty_cache()
+
+    split, msg_s, _ = lp_split(ELP_SPLIT_NODES, ELP_SPLIT_EDGES, ELP_SPLIT_POS, ELP_SPLIT_NEG)
+    all_edges = np.concatenate([split[s][k] for s in ("train", "valid", "test")
+                                for k in ("edge", "edge_neg") if k in split[s]])
+    hub = int(np.bincount(all_edges.reshape(-1)).max())
+    log(f"  (ii) evaluate with each edge_lp_mode: train_linkpred (LinkPredConfig(), "
+        f"mrr), 1 epoch of 1 step on a {ELP_SPLIT_NODES}-node split, {len(all_edges)} "
+        f"scored edges, the largest node on {hub}")
+    assert hub > ELP_CAP, hub
+    evals = {}
+    for mode in ("logit", "emb", "xmc"):
+        cfg = lpm.LinkPredConfig(edge_lp_mode=mode, eval_metric="mrr")
+        # f32: 4 a step and 2 an eval encode (phase 7 (iv)), then the
+        # propagations: one a column block of 128 in xmc mode
+        elp_n = ELP_PROPS * (xmc_blocks(all_edges, ELP_SPLIT_NODES) if mode == "xmc" else 1)
+        expect = {k: (4 + 2 + elp_n if k == "spmm_csr_f32" else 0) for k in K.LAUNCHES}
+        K.reset_launch_counts()
+        run = lpm.train_linkpred(cfg, None, msg_s, ELP_SPLIT_NODES, epochs=1,
+                                 split_edge=split, msg_edges=msg_s, max_steps_per_epoch=1,
+                                 device=dev)
+        counts = dict(K.LAUNCHES)
+        mrr = run["last_results"]["MRR"]
+        log(f"      {mode}: MRR {mrr}, launches {counts} [{card_name}]")
+        assert np.isfinite(mrr).all(), (mode, mrr)
+        assert counts == expect, f"evaluate {mode} launched {counts}, expected {expect}"
+        for k, v in counts.items():
+            totals[k] += v
+        evals[mode] = {"MRR": mrr, "launches": counts}
+    out["evaluate"] = evals
+    return out
+
+
+def native_phase(msg, eb, pd, card_name: str, totals: dict, dev) -> dict:
+    """Phase 13: the host library and edge LP on the card."""
+    t_phase = time.perf_counter()
+    builds, scored = host_builds(msg, eb, pd, card_name)
+    out = {"host_builds": builds}
+    out["edge_lp"] = edge_lp_phase(scored, eb, card_name, totals, dev)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 13: {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
         return 2
     from gnn_tail_generalization_tpu_torch import main as port_main
+    from gnn_tail_generalization_tpu_torch import native
     from gnn_tail_generalization_tpu_torch.data.synthetic import fast_powerlaw_graph
     from gnn_tail_generalization_tpu_torch.graph.core import (
         build_graph, standard_pipeline)
@@ -2557,6 +2924,9 @@ def main() -> int:
     t0 = time.perf_counter()
     log(f"kernels built into {_build.load()._name}")
     log(f"build_s={time.perf_counter() - t0:.2f}")
+    t0 = time.perf_counter()
+    log(f"host library built into {native.load()._name} "
+        f"({time.perf_counter() - t0:.2f} s)")
 
     log("== phase 2: kernels vs plain versions on the card")
     t0 = time.perf_counter()
@@ -2668,10 +3038,14 @@ def main() -> int:
     log("== phase 11: the sharded students, LP and C&S, link prediction")
     students_dist = sharded_students_phase(card_name, totals, split_edge, msg,
                                            linkpred["bench"]["step_ms"])
-    del split_edge, msg
+    del split_edge
 
     log("== phase 12: the two-axis layouts (hier host x card, 2-D graph x model)")
     two_axis = two_axis_phase(card_name, totals, s1_reference, results[0].columns)
+
+    log("== phase 13: the host library (native/) and edge LP")
+    host_lib = native_phase(msg, eb, pd, card_name, totals, dev)
+    del msg
 
     assert totals["spmm_csr_plain"] == 0, totals
     kernels = [{"name": name, "route": "cuda", "source": SOURCE,
@@ -2682,7 +3056,7 @@ def main() -> int:
                       "propagation": propagation, "linkpred": linkpred,
                       "cli": cli, "baselines": baselines, "sharded": sharded,
                       "sharded_students": students_dist, **two_axis,
-                      "card": card_name}))
+                      "native": host_lib, "card": card_name}))
     print(card_name)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

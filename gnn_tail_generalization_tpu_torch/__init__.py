@@ -10,6 +10,8 @@ bound in ``ops/spmm_kernels.py``). Every entry point runs on the card
 torch finds no card (``utils/device.py``).
 
 - ``graph/``     CSR graph container, host-side construction, degree analysis
+- ``native/``    host C++ (built by g++ at first use): the CSR sorts, the
+                 row-sharded buckets, the edge-LP edge graph
 - ``data/``      the Planetoid/OGB/WebKB raw readers, synthetic stand-ins and
                  fake raw-set writers, the preparation pipeline
 - ``ops/``       SpMM (dense, plain, CUDA f32 and bf16 kernels) with autograd,

@@ -36,6 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import native
 from ..graph.core import Graph
 from ..nn.mlp import dense_layer
 from ..utils.device import resolve_device
@@ -62,10 +63,10 @@ class EgoFlows:
 
 def host_csr(edge_index: np.ndarray, n_node: int):
     """(indptr [N + 1] int64, sources [E]) of the edge list grouped by
-    destination in a stable sort, as ``sample_ego_flows`` reads them."""
+    destination in a stable sort (``native.sort_edges_csr``), as
+    ``sample_ego_flows`` reads them."""
     e = np.asarray(edge_index, np.int64)
-    order = np.argsort(e[1], kind="stable")
-    indptr = np.searchsorted(e[1][order], np.arange(n_node + 1))
+    order, indptr = native.sort_edges_csr(e[1], n_node)
     return indptr, e[0][order]
 
 

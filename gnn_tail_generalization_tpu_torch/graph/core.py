@@ -21,6 +21,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import native
 
 #: in-degree above which a row is a hub row: the CUDA SpMM kernels cut its
 #: edges into chunks of at most this many, each summed by a block of its
@@ -250,12 +251,12 @@ def gcn_norm_weights(edge_index: np.ndarray, n_node: int) -> np.ndarray:
     return (dinv[e[0]] * dinv[e[1]]).astype(np.float32)
 
 
-def _csr(rows: np.ndarray, cols: np.ndarray, w: np.ndarray, n_node: int):
+def _csr(rows: np.ndarray, cols: np.ndarray, w: np.ndarray, n_node: int,
+         impl: str = "native"):
     """(indptr, indices, weight, order) grouping edges by ``rows``, stable;
-    ``order`` holds the edge-list position of each CSR edge."""
-    order = np.argsort(rows, kind="stable")
-    indptr = np.zeros(n_node + 1, np.int64)
-    np.cumsum(np.bincount(rows, minlength=n_node), out=indptr[1:])
+    ``order`` holds the edge-list position of each CSR edge. The sort is
+    ``native.sort_edges_csr`` (``impl``: its C++ or its numpy version)."""
+    order, indptr = native.sort_edges_csr(rows, n_node, impl=impl)
     return (torch.from_numpy(indptr.astype(np.int32)),
             torch.from_numpy(cols[order].astype(np.int32)),
             torch.from_numpy(np.ascontiguousarray(w[order], np.float32)),
@@ -279,13 +280,15 @@ def build_graph(
     dense_threshold: int = 8192,
     with_dense: Optional[bool] = None,
     with_plans: bool = False,
+    impl: str = "native",
 ) -> Graph:
     """Build the CPU ``Graph`` from a host edge list ``[2, E]`` (row 0 the
     sources). ``edge_weight=None`` means unit weights (the GCN degree
     normalization is applied outside the SpMM, see nn/gcn.py). Graphs with
     ``n_node <= dense_threshold`` also get ``dense_adj``; ``with_dense``
     overrides that. ``with_plans`` sets ``has_plans``, where the JAX
-    package's ``build_graph`` would build Pallas plans."""
+    package's ``build_graph`` would build Pallas plans. ``impl``: the CSR
+    sorts' C++ (``native``) or numpy (``plain``) version, which agree."""
     e = _as_np(edge_index)
     n_edge = e.shape[1]
     if n_edge >= 2**31 or n_node >= 2**31:
@@ -298,8 +301,8 @@ def build_graph(
             raise ValueError(f"edge_weight shape {w.shape} != ({n_edge},)")
 
     deg_out, deg_in = degrees(e, n_node)
-    indptr, indices, weight, order_f = _csr(e[1], e[0], w, n_node)
-    indptr_t, indices_t, weight_t, order_t = _csr(e[0], e[1], w, n_node)
+    indptr, indices, weight, order_f = _csr(e[1], e[0], w, n_node, impl)
+    indptr_t, indices_t, weight_t, order_t = _csr(e[0], e[1], w, n_node, impl)
     fwd_pos = np.empty(n_edge, np.int64)  # edge-list position -> CSR position
     fwd_pos[order_f] = np.arange(n_edge)
     t_from_fwd = fwd_pos[order_t]

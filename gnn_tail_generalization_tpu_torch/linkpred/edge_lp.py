@@ -17,9 +17,11 @@ two edges adjacent iff they share an endpoint, plus self loops.
 
 The propagations run on ``propagation/correlation.py:
 general_outcome_correlation``, so on the card through the f32 CSR kernel
-(the edge graphs carry no dense adjacency). ``build_edge_graph`` is the
-JAX package's numpy path; its C++ helper (``native/graph_prep.cpp``) is not
-carried over.
+(the edge graphs carry no dense adjacency). ``build_edge_graph`` expands
+the edge graph in ``native/graph_prep.cpp``, as the JAX package does
+wherever g++ builds its library: the same pairs in the same order, and the
+same subsample of a node over ``max_degree``. (The JAX package's numpy
+fallback draws another subsample.)
 """
 from __future__ import annotations
 
@@ -28,67 +30,24 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import native
 from ..graph.core import Graph, build_graph
 from ..propagation.correlation import general_outcome_correlation
 
 
 def build_edge_graph(scored_edges: np.ndarray,
-                     max_degree: Optional[int] = None) -> np.ndarray:
-    """Edge-index of the edge-graph over ``scored_edges`` [M, 2]: ordered
-    pairs of distinct scored edges sharing an endpoint, plus self loops.
+                     max_degree: Optional[int] = None, seed: int = 0) -> np.ndarray:
+    """Edge-index of the edge-graph over ``scored_edges`` [M, 2]: the self
+    loops, then the ordered pairs of distinct scored edges sharing an
+    endpoint.
 
     ``max_degree`` caps the number of incident scored edges considered per
-    node (uniform subsample) to bound the O(sum k^2) blowup on hubs.
-
-    The per-group all-pairs expansion is expressed with repeat/cumsum
-    offsets into the node-sorted incidence list; the uniform subsample is a
-    per-group random order (lexsort by (node, random)) truncated to
-    max_degree.
+    node (a uniform subsample, drawn per (``seed``, node)) to bound the
+    O(sum k^2) blowup on hubs. The expansion is ``native.edge_graph``, the
+    JAX package's C++ path to the bit.
     """
-    edges = np.asarray(scored_edges, np.int64)
-    m = edges.shape[0]
-    loops_sd = np.arange(m, dtype=np.int64)
-    if m == 0:
-        return np.stack([loops_sd, loops_sd])
-
-    # incidence (node, edge_id) pairs, grouped by node
-    nodes = np.concatenate([edges[:, 0], edges[:, 1]])
-    eids = np.concatenate([loops_sd, loops_sd])
-    if max_degree is not None:
-        r = np.random.default_rng(0).random(len(nodes))
-        order = np.lexsort((r, nodes))  # random order within each group
-    else:
-        order = np.argsort(nodes, kind="stable")
-    nodes, eids = nodes[order], eids[order]
-
-    newgrp = np.empty(len(nodes), bool)
-    newgrp[0] = True
-    newgrp[1:] = nodes[1:] != nodes[:-1]
-    grp_id = np.cumsum(newgrp) - 1
-    starts = np.flatnonzero(newgrp)
-    sizes = np.diff(np.append(starts, len(nodes)))
-    if max_degree is not None:
-        pos = np.arange(len(nodes)) - starts[grp_id]
-        keep = pos < max_degree
-        eids = eids[keep]
-        sizes = np.minimum(sizes, max_degree)
-        starts = np.concatenate([[0], np.cumsum(sizes)[:-1]])
-
-    # i-major all-pairs expansion without any per-pair division: each kept
-    # incidence spans one "row" of k pairs, so a = repeat(eids, row_len)
-    # and b = eids[group_start_of_pair + (arange - row_start_of_pair)]
-    eids = eids.astype(np.int32)
-    row_len = np.repeat(sizes, sizes)  # [n_incidences kept]
-    n_pairs = int(row_len.sum())
-    a = np.repeat(eids, row_len)
-    row_start = np.concatenate([[0], np.cumsum(row_len)[:-1]])
-    grp_start = np.repeat(starts, sizes)  # group start per incidence
-    b = eids[np.repeat((grp_start - row_start).astype(np.int64), row_len)
-             + np.arange(n_pairs, dtype=np.int64)]
-    keep = a != b
-    loops32 = loops_sd.astype(np.int32)
-    return np.stack([np.concatenate([loops32, a[keep]]),
-                     np.concatenate([loops32, b[keep]])]).astype(np.int64)
+    edges = np.asarray(scored_edges, np.int64).reshape(-1, 2)
+    return native.edge_graph(edges[:, 0], edges[:, 1], max_degree, seed)
 
 
 def _dad_edge_graph(edge_adj: np.ndarray, m: int) -> Graph:

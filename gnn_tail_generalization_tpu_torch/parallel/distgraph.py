@@ -12,7 +12,8 @@ Layout (``build_dist_graph``, as in the JAX package, ``:265-387``):
 
 - nodes are padded to ``n_node_pad = round_up(n, S * rb)`` and cut into S
   shards of ``rows_per_shard`` rows; edges take the canonical order of
-  ``lexsort((src, dst))``;
+  ``lexsort((src, dst))``, sorted and cut into buckets on the host by
+  ``native/``'s C++ (``canonical_order``, ``ring_buckets``);
 - rank k holds the forward buckets (k, j), j = 0..S-1: the edges with dst in
   shard k and src in shard j, each a CSR over its ``rows_per_shard`` local
   rows with local sources and a ``RowSchedule`` of its own; and the
@@ -61,6 +62,7 @@ from typing import Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import native
 from ..graph.core import RowSchedule, _csr, build_schedule, edge_rows, sorted_unique
 from ..ops import spmm_kernels as K
 from .comm import Comm, gather_cols, split_cols
@@ -239,35 +241,35 @@ def model_cols(d: int, model_comm: Optional[Comm]) -> Optional[Comm]:
 def build_dist_graph(edge_index: np.ndarray, n_node: int, comm: Comm,
                      edge_weight: Optional[np.ndarray] = None, *, rb: int = 128,
                      with_edge_view: bool = False,
-                     model_comm: Optional[Comm] = None) -> DistGraph:
+                     model_comm: Optional[Comm] = None,
+                     impl: str = "native") -> DistGraph:
     """Rank ``comm.shard``'s ``DistGraph`` (on the CPU; ``.to(device)``)
     from the host edge list ``[2, E]`` that every rank holds whole.
     ``with_edge_view``: keep the canonical edge list and each CSR slot's
     canonical edge id, for graph dropout (``masked_dist_graph``).
     ``model_comm``: the model axis of a 2-D mesh (``comm`` its graph axis);
-    the buckets depend on the graph axis alone."""
+    the buckets depend on the graph axis alone. ``impl``: the canonical
+    sort and the bucket CSRs by ``native``'s C++ (``native``) or its numpy
+    version (``plain``), which agree bit for bit."""
     s, k = comm.world_size, comm.shard
     e = np.asarray(edge_index, np.int64)
     w = (np.ones(e.shape[1], np.float32) if edge_weight is None
          else np.asarray(edge_weight, np.float32))
-    can = np.lexsort((e[0], e[1]))  # dst-sorted, then src
-    e, w = e[:, can], w[can]
     n_node_pad = round_up(n_node, s * rb)
+    can = native.canonical_order(e[0], e[1], n_node_pad, impl=impl)
+    e, w = e[:, can], w[can]
     rows = n_node_pad // s
     lo = k * rows
     deg_out = np.bincount(e[0], minlength=n_node_pad).astype(np.float32)
     deg_in = np.bincount(e[1], minlength=n_node_pad).astype(np.float32)
-    src_shard, dst_shard = e[0] // rows, e[1] // rows
+    fwd, t = native.ring_buckets(e[0], e[1], w, rows, s, k,
+                                 with_gid=with_edge_view, impl=impl)
 
-    def bucket_set(mine: np.ndarray, row_end: int, col_shard: np.ndarray):
-        """Buckets j = 0..S-1 of the edges ``mine`` (canonical ids), rows
-        from ``e[row_end]`` and sources from the other end."""
-        out = []
-        for j in range(s):
-            ids = mine[col_shard[mine] == j]
-            out.append(_bucket(e[row_end, ids] - lo, e[1 - row_end, ids] - j * rows,
-                               w[ids], rows, ids if with_edge_view else None))
-        return tuple(out)
+    def bucket_set(arrays):
+        return tuple(Bucket(torch.from_numpy(ip), torch.from_numpy(idx),
+                            torch.from_numpy(wt), build_schedule(ip),
+                            None if gid is None else torch.from_numpy(gid))
+                     for ip, idx, wt, gid in arrays)
 
     view = None
     if with_edge_view:
@@ -277,9 +279,7 @@ def build_dist_graph(edge_index: np.ndarray, n_node: int, comm: Comm,
                         torch.from_numpy(e[0].astype(np.int32)),
                         torch.from_numpy(w), n_node, e.shape[1])
     return DistGraph(
-        comm=comm,
-        buckets=bucket_set(np.flatnonzero(dst_shard == k), 1, src_shard),
-        buckets_t=bucket_set(np.flatnonzero(src_shard == k), 0, dst_shard),
+        comm=comm, buckets=bucket_set(fwd), buckets_t=bucket_set(t),
         deg_out=torch.from_numpy(deg_out[lo: lo + rows].copy()),
         deg_in=torch.from_numpy(deg_in[lo: lo + rows].copy()),
         n_node=n_node, n_node_pad=n_node_pad, rows_per_shard=rows, rb=rb,
