@@ -1,8 +1,9 @@
 """Drive the PyTorch port's teacher, trick zoo, Cold Brew student, label
 propagation, link-prediction, self-supervised baseline, row-sharded (the
 teacher, the students, LP and C&S, link prediction), two-axis (host x
-card, graph x model) and edge label propagation paths, and its host
-library, on one CUDA card.
+card, graph x model), edge label propagation and bespoke sharded-teacher
+(all-gather SpMM, 1-D and 2-D SGD) paths, and its host library, on one
+CUDA card.
 
     python3 chip_smoke.py
 
@@ -216,13 +217,36 @@ Phases (any failure exits non-zero; nothing is caught):
    propagation; ``train_linkpred`` with each ``edge_lp_mode`` (1 step, the
    evaluation) on a 20,000-node split whose largest node is over the cap: a
    finite MRR and exact launch counts. Phase 13's seconds are printed.
+14. the bespoke sharded teachers (``parallel/distributed.py``,
+   ``parallel/tensor_parallel.py``) on phase 3's slice at its widths
+   (128 -> 256 -> 40, SE on layer 0), padded as the JAX package pads
+   (``ceil(n / S) * S``), the SE rows of padding zero so that every S
+   computes one function: (i) one rank, no collective: the f32 kernel on
+   the all-gather SpMM's forward and transposed CSRs at d = 256 and 40
+   against the plain version (``compare``), and ``dist_spmm``'s y and dx
+   against ``ops/spmm.py:spmm`` on the one-device graph (1e-5), with ms;
+   (ii) ``make_dist_train_step``, 5 SGD steps: finite losses that fall,
+   exactly 4 f32 launches a step and none of the others, step ms, and one
+   step through the kernel against the plain version within the larger of
+   1e-5 and 4x the plain step's sum-order floor (a graph built from
+   permuted edges); the 2-D step on a 1 x 1 mesh, 3 steps (its one-rank
+   run); (iii) two ranks (over NCCL with two cards, else over host-staged
+   gloo on the one card; the line names it): the all-gather SpMM and
+   ``dist_spmm_ring`` at d = 256 and 40, y and dx, against S = 1's
+   ``dist_spmm`` on the same x (1e-5), then the 1-D step, 3 steps, 4 f32
+   launches a step a rank, its losses, dense parameters and SE norm held
+   to the S = 1 run's first 3 steps (1e-4), and the ms of a d = 256
+   all-gather, reduce-scatter and SpMM of each kind with the bytes a rank
+   moves; (iv) four ranks on the (graph 2, model 2) mesh (NCCL with four
+   cards, else gloo): the 2-D step, 3 steps, held to its one-rank run
+   likewise. Phase 14's seconds are printed.
 
 Prints the kernels' JSON line (launches summed over every phase; phase 7's
 numbers under ``linkpred``, phase 8's under ``cli``, phase 9's under
 ``baselines``, phase 10's under ``sharded``, phase 11's under
 ``sharded_students``, phase 12's under ``hier`` and ``mesh_2d``, phase
-13's under ``native``), the card's name and power limit, then as the last
-line
+13's under ``native``, phase 14's under ``bespoke``), the card's name and
+power limit, then as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 import contextlib
@@ -337,6 +361,16 @@ LINK_EVAL_POS, LINK_STEPS = 1024, 2  # the sharded link runs' eval split, steps 
 NATIVE_DIST_S, NATIVE_DIST_RB = 2, 128
 ELP_CAP, ELP_PROPS, ELP_EMB_D, XMC_SCORED = 256, 5, 256, 4096
 ELP_SPLIT_NODES, ELP_SPLIT_EDGES, ELP_SPLIT_POS, ELP_SPLIT_NEG = 20_000, 100_000, 1000, 20
+# phase 14: the bespoke sharded teachers (parallel/distributed.py,
+# parallel/tensor_parallel.py) on the slice at its widths, 128 -> 256 -> 40,
+# SE on layer 0, padded as JAX pads (ceil(n / S) * S: 169,343 rows at S = 1,
+# 169,344 at S = 2 and on the 2 x 2 mesh). The SE rows of padding start at
+# zero and stay there (a padded node has no edge), so every S computes one
+# function. lr is the JAX tests'; se_reg 1e-4 weighs the norm of the
+# [169343, 256] table (~6,600) near the NLL, as 0.01 does at their n = 80
+BESPOKE_HIDDEN, BESPOKE_LR, BESPOKE_SE_REG, BESPOKE_SEED = 256, 0.05, 1e-4, 0
+BESPOKE_STEPS, BESPOKE_SHARDED_STEPS, BESPOKE_REPS = 5, 3, 5
+BESPOKE_REL = 1e-4  # sharded records against the one-rank run (f32 sum order)
 
 
 def log(msg: str) -> None:
@@ -2896,6 +2930,335 @@ def native_phase(msg, eb, pd, card_name: str, totals: dict, dev) -> dict:
     return out
 
 
+def bespoke_inputs(pd) -> dict:
+    """What phase 14 needs of the slice, as numpy: its edges (the loader's
+    pipeline and isolation crafting applied), the edge list's degrees,
+    features, labels and train mask."""
+    from gnn_tail_generalization_tpu_torch.graph.core import degrees
+
+    dout, din = degrees(pd.edge_index, pd.n_node)
+    return {"edge_index": pd.edge_index, "n": pd.n_node, "x": pd.x,
+            "y": pd.y.astype(np.int64), "train_mask": pd.train_mask,
+            "deg_in": din, "deg_out": dout}
+
+
+def bespoke_params(kind: str, inp: dict, n_node_pad: int) -> dict:
+    """The whole initial parameters of the 1-D (``"1d"``) or 2-D teacher from
+    ``BESPOKE_SEED``, cut to ``n_node_pad`` SE rows, the rows of padding
+    zero (the same draws for every S)."""
+    from gnn_tail_generalization_tpu_torch.parallel import distributed as D
+    from gnn_tail_generalization_tpu_torch.parallel import tensor_parallel as TP
+
+    n, n_feat, n_class = inp["n"], inp["x"].shape[1], int(inp["y"].max()) + 1
+    shape = (BESPOKE_SEED, D.distgraph.round_up(n, 2), n_feat, BESPOKE_HIDDEN, n_class)
+    p = D.init_dist_teacher(*shape) if kind == "1d" else TP.init_2d_teacher(*shape)
+    p["se0"][n:] = 0
+    p["se0"] = p["se0"][:n_node_pad]
+    return p
+
+
+def bespoke_batch(inp: dict, coords: dict, sizes: dict, dev) -> dict:
+    """A rank's rows of the node arrays, padded to ``ceil(n / G) * G`` rows
+    (G the graph axis's size)."""
+    from gnn_tail_generalization_tpu_torch.parallel import distributed as D
+
+    npad = D.distgraph.round_up(inp["n"], sizes["graph"])
+    whole = {k: D.pad_rows(np.asarray(inp[k]), npad)
+             for k in ("x", "y", "train_mask", "deg_in", "deg_out")}
+    return D.local_slices(whole, D.batch_shardings(whole), coords, sizes, dev)
+
+
+def bespoke_run(step, params, batch, sg, steps: int, dev) -> dict:
+    """``steps`` SGD steps through ``step``, the launches read around them:
+    the losses, each step's host ms (card synchronized), and after
+    ``BESPOKE_SHARDED_STEPS`` steps this rank's blocks of the parameters
+    other than the SE table and the SE block's squared norm."""
+    from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
+
+    K.reset_launch_counts()
+    losses, ms, held = [], [], None
+    for i in range(steps):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        params, loss = step(params, batch, sg)
+        losses.append(loss.item())
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if i + 1 == BESPOKE_SHARDED_STEPS:
+            held = {"blocks": {k: v.cpu().numpy() for k, v in params.items() if k != "se0"},
+                    "se_sq": float((params["se0"].double() ** 2).sum())}
+    return {"losses": np.array(losses), "step_ms": ms, "launches": dict(K.LAUNCHES),
+            **held}
+
+
+def bespoke_launches(steps: int, dev) -> dict:
+    """The SpMM launches of ``steps`` bespoke steps on a rank: 4 a step (two
+    layers, forward and transposed backward) of the f32 kernel; of its plain
+    version on the CPU (a dry run of these functions)."""
+    counts = {"spmm_csr_f32": 0, "spmm_csr_bf16": 0, "spmm_csr_plain": 0}
+    counts["spmm_csr_f32" if dev.type == "cuda" else "spmm_csr_plain"] = 4 * steps
+    return counts
+
+
+def spmm_and_grad(fn, x, ct) -> tuple:
+    """(fn(x), d(fn(x) . ct)/dx)."""
+    x = x.detach().clone().requires_grad_()
+    y = fn(x)
+    y.backward(ct)
+    return y.detach(), x.grad
+
+
+def csr_view(sg, transposed: bool):
+    """A ``ShardedGraph``'s forward or transposed CSR in the form
+    ``compare`` reads (square at S = 1)."""
+    from types import SimpleNamespace
+
+    t = "_t" if transposed else ""
+    indptr = getattr(sg, "indptr" + t)
+    return SimpleNamespace(indptr=indptr, indices=getattr(sg, "indices" + t),
+                           weight=getattr(sg, "weight" + t),
+                           schedule=getattr(sg, "schedule" + t),
+                           n_node=indptr.numel() - 1, n_edge=sg.n_edge)
+
+
+def bespoke_rank(comm, inp: dict) -> dict:
+    """Phase 14 (iii), one of S ranks: both SpMMs at d = 256 and 40, forward
+    and backward, against S = 1's ``dist_spmm`` on the same x; the 1-D step,
+    ``BESPOKE_SHARDED_STEPS`` steps; the ms of one d = 256 all-gather,
+    reduce-scatter and SpMM of each kind."""
+    from gnn_tail_generalization_tpu_torch.parallel import distributed as D
+    from gnn_tail_generalization_tpu_torch.parallel.comm import Comm
+    from gnn_tail_generalization_tpu_torch.utils.convert import dist_teacher_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev, s, k = comm.device, comm.world_size, comm.shard
+    t0 = time.perf_counter()
+    ei, n = inp["edge_index"], inp["n"]
+    sg = D.shard_graph(ei, n, s, k, device=dev)
+    rg = D.shard_graph_ring(ei, n, comm, device=dev)
+    sg1, one = D.shard_graph(ei, n, 1, 0, device=dev), Comm(0, 1, dev, comm.transport)
+    npad, rows = sg.n_node_pad, sg.rows_per_shard
+    assert rg.n_node_pad == npad, (rg.n_node_pad, npad)
+    mine = slice(k * rows, (k + 1) * rows)
+    out = {"rank": comm.rank, "device": dev, "shard": k, "n_node_pad": npad, "spmm": {},
+           "build_s": time.perf_counter() - t0}
+    gen = torch.Generator(device=dev).manual_seed(14)
+    for d in (256, 40):
+        x, ct = (torch.randn(npad, d, generator=gen, device=dev) for _ in range(2))
+        y1, dx1 = spmm_and_grad(lambda t: D.dist_spmm(sg1, t, one), x[:n], ct[:n])
+        y1, dx1 = (torch.cat([t, t.new_zeros(npad - n, d)])[mine] for t in (y1, dx1))
+        for name, fn in (("all-gather", lambda t: D.dist_spmm(sg, t, comm)),
+                         ("ring", lambda t: D.dist_spmm_ring(rg, t))):
+            y, dx = spmm_and_grad(fn, x[mine], ct[mine])
+            out["spmm"][f"{name} d={d}"] = {"y": rel_err(y, y1), "dx": rel_err(dx, dx1)}
+    coords, sizes = {"graph": k}, {"graph": s}
+    batch = bespoke_batch(inp, coords, sizes, dev)
+    params = dist_teacher_params(bespoke_params("1d", inp, npad), k, s, dev)
+    step = D.make_dist_train_step(comm, BESPOKE_LR, BESPOKE_SE_REG)
+    comm.counts.update(dict.fromkeys(comm.counts, 0))
+    out["run"] = bespoke_run(step, params, batch, sg, BESPOKE_SHARDED_STEPS, dev)
+    out["run"]["comm"] = dict(comm.counts)
+    x = torch.randn(rows, 256, generator=gen, device=dev)
+    full = torch.randn(npad, 256, generator=gen, device=dev)
+    out["ms"] = {
+        "all-gather": timed_ms(lambda: comm.all_gather(x), dev, BESPOKE_REPS),
+        "reduce-scatter": timed_ms(lambda: comm.reduce_scatter_sum(full), dev, BESPOKE_REPS),
+        "dist_spmm": timed_ms(lambda: D.dist_spmm(sg, x, comm), dev, BESPOKE_REPS),
+        "dist_spmm_ring": timed_ms(lambda: D.dist_spmm_ring(rg, x), dev, BESPOKE_REPS)}
+    # a rank receives S - 1 blocks in an all-gather and sends S - 1 in a
+    # reduce-scatter, of R x 256 f32 each
+    out["bytes_a_rank"] = (s - 1) * rows * 256 * 4
+    return out
+
+
+def bespoke_2d_rank(mesh, inp: dict) -> dict:
+    """Phase 14 (iv), one of four ranks of the (graph 2, model 2) mesh: the
+    2-D step, ``BESPOKE_SHARDED_STEPS`` steps."""
+    from gnn_tail_generalization_tpu_torch.parallel import distributed as D
+    from gnn_tail_generalization_tpu_torch.parallel import tensor_parallel as TP
+    from gnn_tail_generalization_tpu_torch.utils.convert import teacher_2d_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev, g = mesh.device, mesh.coords["graph"]
+    sg = D.shard_graph(inp["edge_index"], inp["n"], mesh.shape["graph"], g, device=dev)
+    batch = bespoke_batch(inp, mesh.coords, mesh.shape, dev)
+    params = teacher_2d_params(bespoke_params("2d", inp, sg.n_node_pad), mesh.coords,
+                               mesh.shape, dev)
+    step = TP.make_2d_train_step(mesh, BESPOKE_LR, BESPOKE_SE_REG)
+    run = bespoke_run(step, params, batch, sg, BESPOKE_SHARDED_STEPS, dev)
+    run["comm"] = {a: dict(mesh.comm(a).counts) for a in mesh.names}
+    return {"rank": mesh.rank, "device": dev, "coords": mesh.coords, "run": run}
+
+
+def held_to(name: str, got: dict, want: dict, card_name: str) -> dict:
+    """A sharded run's losses, parameters and SE norm against the one-rank
+    run's within ``BESPOKE_REL``."""
+    steps = BESPOKE_SHARDED_STEPS
+    errs = {"losses": float(np.abs(got["losses"][:steps] - want["losses"][:steps]).max()
+                            / np.abs(want["losses"][:steps]).max()),
+            "se_sq": abs(got["se_sq"] - want["se_sq"]) / want["se_sq"],
+            **{k: float(np.abs(got["blocks"][k] - v).max() / max(np.abs(v).max(), 1e-30))
+               for k, v in want["blocks"].items()}}
+    log(f"    {name}: losses {np.round(got['losses'], 6).tolist()}, step_ms "
+        f"{[round(v, 3) for v in got['step_ms']]}; vs one rank: max rel "
+        f"{max(errs.values()):.3e} (bound {BESPOKE_REL:.0e}) [{card_name}]")
+    bad = {k: v for k, v in errs.items() if not v <= BESPOKE_REL}
+    assert not bad, (name, bad)
+    return errs
+
+
+def bespoke_phase(pd, card_name: str, totals: dict, dev) -> dict:
+    """Phase 14: the bespoke sharded teachers (``parallel/distributed.py``,
+    ``parallel/tensor_parallel.py``) on the card."""
+    from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
+    from gnn_tail_generalization_tpu_torch.ops.spmm import spmm
+    from gnn_tail_generalization_tpu_torch.parallel import distributed as D
+    from gnn_tail_generalization_tpu_torch.parallel import tensor_parallel as TP
+    from gnn_tail_generalization_tpu_torch.parallel.comm import Comm
+    from gnn_tail_generalization_tpu_torch.parallel.launch import spawn
+    from gnn_tail_generalization_tpu_torch.utils.convert import (dist_teacher_params,
+                                                                 teacher_2d_params)
+
+    t_phase = time.perf_counter()
+    inp = bespoke_inputs(pd)
+    n = inp["n"]
+    one = Comm(0, 1, dev, "nccl")
+    sg = D.shard_graph(inp["edge_index"], n, 1, 0, device=dev)
+    g = pd.graph.to(dev)
+    out = {"n_node": n, "n_edge": sg.n_edge, "spmm": {}}
+    log(f"  (i) S = 1 (one rank, no collective): n_node_pad {sg.n_node_pad}, "
+        f"{sg.n_edge} edges")
+    gen = torch.Generator(device=dev).manual_seed(14)
+    for d in (256, 40):
+        x, ct = (torch.randn(n, d, generator=gen, device=dev) for _ in range(2))
+        for tag, transposed in (("fwd", False), ("transposed", True)):
+            compare("spmm_csr_f32", K.spmm_csr_f32, csr_view(sg, transposed), x, False,
+                    card_name, f"bespoke S=1 {tag}", reps=10)
+        y, dx = spmm_and_grad(lambda t: D.dist_spmm(sg, t, one), x, ct)
+        y_ref, dx_ref = spmm_and_grad(lambda t: spmm(g, t, "auto"), x, ct)
+        errs = {"y": rel_err(y, y_ref), "dx": rel_err(dx, dx_ref)}
+        ms = {"fwd": median_ms(lambda: D.dist_spmm(sg, x, one), reps=10),
+              "fwd+bwd": median_ms(lambda: spmm_and_grad(
+                  lambda t: D.dist_spmm(sg, t, one), x, ct), reps=10)}
+        log(f"    dist_spmm d={d} vs ops/spmm.spmm (one device): rel y {errs['y']:.3e} "
+            f"dx {errs['dx']:.3e}; ms {ms} [{card_name}]")
+        assert max(errs.values()) <= REL_TOL, (d, errs)
+        out["spmm"][d] = {**errs, "ms": ms}
+    del x, ct, y, dx, y_ref, dx_ref, g
+
+    init = bespoke_params("1d", inp, n)
+    (f_in, hidden), n_class = init["w0"].shape, init["w1"].shape[1]
+    log(f"  (ii) make_dist_train_step at S = 1: {f_in} -> {hidden} -> {n_class}, SE on "
+        f"layer 0, {BESPOKE_STEPS} SGD steps (lr {BESPOKE_LR}, se_reg {BESPOKE_SE_REG})")
+    batch = bespoke_batch(inp, {"graph": 0}, {"graph": 1}, dev)
+    params = dist_teacher_params(init, 0, 1, dev)
+    s1 = bespoke_run(D.make_dist_train_step(one, BESPOKE_LR, BESPOKE_SE_REG), params,
+                     batch, sg, BESPOKE_STEPS, dev)
+    expect = bespoke_launches(BESPOKE_STEPS, dev)
+    log(f"    losses {np.round(s1['losses'], 6).tolist()}, step_ms "
+        f"{[round(v, 3) for v in s1['step_ms']]}, launches {s1['launches']} [{card_name}]")
+    assert np.isfinite(s1["losses"]).all() and s1["losses"][-1] < s1["losses"][0], s1
+    assert s1["launches"] == expect, (s1["launches"], expect)
+    for kname, v in s1["launches"].items():
+        totals[kname] += v
+
+    def grads(method, graph):
+        return D.sharded_grads(params, lambda p: D.dist_teacher_loss(
+            one, graph, p, batch["x"], batch["y"], batch["train_mask"], batch["deg_in"],
+            batch["deg_out"], BESPOKE_SE_REG, method), D.param_shardings(params), one)
+
+    perm = np.random.default_rng(1).permutation(inp["edge_index"].shape[1])
+    sg_re = D.shard_graph(inp["edge_index"][:, perm], n, 1, 0, device=dev)
+    (lk, gk), (lp, gp), (lf, gf) = (grads("auto", sg), grads("gather", sg),
+                                    grads("gather", sg_re))
+    parity = {"loss": {"rel": rel_err(lk, lp), "floor": rel_err(lf, lp)},
+              **{k: {"rel": rel_err(gk[k], gp[k]), "floor": rel_err(gf[k], gp[k])}
+                 for k in gp}}
+    top = max(parity.items(), key=lambda kv: kv[1]["rel"])
+    log(f"    one step, kernel vs plain: max rel {top[1]['rel']:.3e} ({top[0]}, order "
+        f"floor {top[1]['floor']:.3e})")
+    bad = {k: v for k, v in parity.items() if v["rel"] > max(REL_TOL, 4 * v["floor"])}
+    assert not bad, bad
+    del sg_re, gk, gp, gf, params
+    out["s1"] = {"losses": s1["losses"].tolist(), "step_ms": s1["step_ms"],
+                 "launches": s1["launches"], "step_parity": parity}
+
+    log(f"  the 2-D step on a 1 x 1 mesh (its one-rank run), "
+        f"{BESPOKE_SHARDED_STEPS} steps")
+    mesh1 = TP.make_2d_mesh(one, 1, 1)
+    params = teacher_2d_params(bespoke_params("2d", inp, n), mesh1.coords, mesh1.shape, dev)
+    s1_2d = bespoke_run(TP.make_2d_train_step(mesh1, BESPOKE_LR, BESPOKE_SE_REG), params,
+                        batch, sg, BESPOKE_SHARDED_STEPS, dev)
+    expect = bespoke_launches(BESPOKE_SHARDED_STEPS, dev)
+    log(f"    losses {np.round(s1_2d['losses'], 6).tolist()}, step_ms "
+        f"{[round(v, 3) for v in s1_2d['step_ms']]}, launches {s1_2d['launches']}")
+    assert s1_2d["launches"] == expect, s1_2d["launches"]
+    assert np.isfinite(s1_2d["losses"]).all()
+    for kname, v in s1_2d["launches"].items():
+        totals[kname] += v
+    out["s1_2d"] = {"losses": s1_2d["losses"].tolist(), "step_ms": s1_2d["step_ms"]}
+    del params, batch, sg
+    torch.cuda.empty_cache()
+
+    two = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    where = ("over nccl, a card a rank" if two == "nccl" else
+             "over gloo, 2 ranks on one card, host-staged")
+    log(f"  (iii) S = 2 ({where}): both SpMMs vs S = 1, the 1-D step "
+        f"{BESPOKE_SHARDED_STEPS} steps")
+    t0 = time.perf_counter()
+    ranks = spawn(bespoke_rank, 2, two, "cuda", inp)
+    out["s2"] = {"where": where, "spawn_s": time.perf_counter() - t0, "ranks": []}
+    for r in ranks:
+        worst = max(max(v.values()) for v in r["spmm"].values())
+        log(f"    rank {r['rank']}: SpMMs vs S = 1, max rel {worst:.3e}: {r['spmm']}")
+        assert worst <= REL_TOL, r["spmm"]
+        run = r["run"]
+        expect = bespoke_launches(BESPOKE_SHARDED_STEPS, r["device"])
+        assert run["launches"] == expect, (r["rank"], run["launches"])
+        for kname, v in run["launches"].items():
+            totals[kname] += v
+        assert np.array_equal(run["losses"], ranks[0]["run"]["losses"])
+        log(f"    rank {r['rank']}: launches {run['launches']}, comm {run['comm']}; ms "
+            f"{ {k: round(v, 3) for k, v in r['ms'].items()} } (d = 256, "
+            f"{r['bytes_a_rank']} B a rank each way) [{card_name}]")
+        out["s2"]["ranks"].append({k: r[k] for k in ("spmm", "ms", "bytes_a_rank",
+                                                     "build_s")})
+    whole = dict(ranks[0]["run"], se_sq=sum(r["run"]["se_sq"] for r in ranks))
+    out["s2"]["vs_s1"] = held_to("S = 2 1-D step", whole, s1, card_name)
+    out["s2"].update(losses=whole["losses"].tolist(), step_ms=whole["step_ms"])
+
+    four = "nccl" if torch.cuda.device_count() >= 4 else "gloo"
+    where = ("over nccl, a card a rank" if four == "nccl" else
+             "over gloo, 4 ranks on one card, host-staged")
+    log(f"  (iv) the 2-D step on a (graph 2, model 2) mesh ({where}), "
+        f"{BESPOKE_SHARDED_STEPS} steps")
+    t0 = time.perf_counter()
+    ranks = spawn(bespoke_2d_rank, 4, four, "cuda", inp, mesh=((2, 2), ("graph", "model")))
+    spawn_s = time.perf_counter() - t0
+    blocks = {}
+    for r in ranks:
+        run = r["run"]
+        expect = bespoke_launches(BESPOKE_SHARDED_STEPS, r["device"])
+        assert run["launches"] == expect, (r["rank"], run["launches"])
+        for kname, v in run["launches"].items():
+            totals[kname] += v
+        assert np.array_equal(run["losses"], ranks[0]["run"]["losses"])
+        if r["coords"]["graph"] == 0:
+            blocks[r["coords"]["model"]] = run["blocks"]
+        log(f"    rank {r['rank']} at {r['coords']}: launches {run['launches']}, comm "
+            f"{run['comm']}")
+    cat = {"w0": 1, "b0": 0, "w1": 0}
+    whole = dict(ranks[0]["run"], se_sq=sum(r["run"]["se_sq"] for r in ranks), blocks={
+        k: (np.concatenate([blocks[m][k] for m in (0, 1)], axis=cat[k]) if k in cat
+            else blocks[0][k]) for k in blocks[0]})
+    out["mesh_2d"] = {"where": where, "spawn_s": spawn_s, "losses": whole["losses"].tolist(),
+                      "step_ms": whole["step_ms"],
+                      "vs_one_rank": held_to("2 x 2 2-D step", whole, s1_2d, card_name)}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 14: {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
@@ -3046,6 +3409,10 @@ def main() -> int:
     log("== phase 13: the host library (native/) and edge LP")
     host_lib = native_phase(msg, eb, pd, card_name, totals, dev)
     del msg
+    torch.cuda.empty_cache()
+
+    log("== phase 14: the bespoke sharded teachers (all-gather SpMM, 1-D and 2-D SGD)")
+    bespoke = bespoke_phase(pd, card_name, totals, dev)
 
     assert totals["spmm_csr_plain"] == 0, totals
     kernels = [{"name": name, "route": "cuda", "source": SOURCE,
@@ -3056,7 +3423,7 @@ def main() -> int:
                       "propagation": propagation, "linkpred": linkpred,
                       "cli": cli, "baselines": baselines, "sharded": sharded,
                       "sharded_students": students_dist, **two_axis,
-                      "native": host_lib, "card": card_name}))
+                      "native": host_lib, "bespoke": bespoke, "card": card_name}))
     print(card_name)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -28,6 +28,14 @@ back. The collectives:
 - ``all_gather(t)``: every shard's ``t``, stacked in shard order into
   ``[S, *t.shape]`` (``all_gather_into_tensor`` over NCCL), outside
   autograd: the sharded latent-neighbour op's candidates.
+- ``reduce_scatter_sum(t)``: of ``[S * r, ...]`` ``t``, the sum over the
+  ranks of the ``r`` rows at this shard's place in shard order
+  (``reduce_scatter_tensor``), outside autograd.
+
+``gather_rows(t, comm)`` is the differentiable row all-gather: the shards'
+``[r, d]`` blocks stacked in shard order into ``[S * r, d]``
+(``jax.lax.all_gather(..., tiled=True)``), whose backward is the transpose,
+``reduce_scatter_sum`` of the gradient (``parallel/distributed.py``).
 
 Shard ``s`` is the rank at position ``s`` of ``order`` (default: rank order);
 ``parallel/multihost.py`` gives an order that keeps ring neighbours on one
@@ -82,11 +90,14 @@ class Comm:
         # sorts the global ranks) holding shard s's part
         ranked = sorted(self.order)
         self._to_shard_order = [ranked.index(r) for r in self.order]
+        # the shard whose block goes to position p of a collective's input
+        # (the group's rank order)
+        self._to_rank_order = [self.order.index(r) for r in ranked]
         # pinned host buffers of the gloo transport, by (role, shape, dtype)
         self._host: Dict[Tuple, torch.Tensor] = {}
         #: collectives started, and ring buckets that had no edge to launch on
         self.counts = {"ring_shifts": 0, "all_reduces": 0, "all_gathers": 0,
-                       "skipped_buckets": 0}
+                       "reduce_scatters": 0, "skipped_buckets": 0}
 
     @property
     def staged(self) -> bool:
@@ -136,6 +147,29 @@ class Comm:
         if self.order != sorted(self.order):  # group rank order -> shard order
             out = out[torch.tensor(self._to_shard_order, device=out.device)]
         return out
+
+    def reduce_scatter_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """``[r, *rest]``: the sum over the ranks of rows ``shard * r`` to
+        ``(shard + 1) * r`` of ``[S * r, *rest]`` ``t``, whose blocks are in
+        shard order."""
+        if t.shape[0] % self.world_size:
+            raise ValueError(f"{t.shape[0]} rows do not split over {self.world_size} "
+                             f"shards")
+        if self.world_size == 1:
+            return t.clone()
+        self.counts["reduce_scatters"] += 1
+        blocks = t.reshape(self.world_size, -1, *t.shape[1:])
+        if self.order != sorted(self.order):  # shard order -> group rank order
+            blocks = blocks[torch.tensor(self._to_rank_order, device=t.device)]
+        send = blocks.reshape(t.shape).contiguous()
+        out = torch.empty(blocks.shape[1:], dtype=t.dtype, device=t.device)
+        if not self.staged:
+            dist.reduce_scatter_tensor(out, send, group=self.group)
+            return out
+        h_in, h_out = self._host_buffer("scatter", send), self._host_buffer("scattered", out)
+        h_in.copy_(send)  # waits for the card
+        dist.reduce_scatter_tensor(h_out, h_in, group=self.group)
+        return out.copy_(h_out)
 
     def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
         """The sum of ``t`` over the ranks, differentiable."""
@@ -187,6 +221,12 @@ class _AllReduceSum(torch.autograd.Function):
         return ctx.comm.all_reduce_sum_(grad.contiguous().clone()), None
 
 
+def gather_rows(t: torch.Tensor, comm: Comm) -> torch.Tensor:
+    """``[S * r, d]``: the shards' ``[r, d]`` row blocks in shard order; its
+    gradient reduce-scattered back (module docstring)."""
+    return t if comm.world_size == 1 else _GatherRows.apply(t, comm)
+
+
 def copy_to(t: torch.Tensor, comm: Comm) -> torch.Tensor:
     """``t``; its gradient summed over ``comm`` (module docstring)."""
     return t if comm.world_size == 1 else _CopyTo.apply(t, comm)
@@ -218,6 +258,17 @@ def own_cols(t: torch.Tensor, comm: Comm) -> torch.Tensor:
 def _cat_cols(t: torch.Tensor, comm: Comm) -> torch.Tensor:
     parts = comm.all_gather(t)  # [S, n, w]
     return parts.permute(1, 0, 2).reshape(t.shape[0], -1)
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, comm):
+        ctx.comm = comm
+        return comm.all_gather(t).reshape(-1, *t.shape[1:])
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.comm.reduce_scatter_sum(grad.contiguous()), None
 
 
 class _CopyTo(torch.autograd.Function):

@@ -14,6 +14,12 @@ become its ``running_mean`` and ``running_var`` buffers, the conv kernel
 keeps its ``[in, out]`` layout, and a parameter of the module itself
 (``alphas``, ``input_embs``, GIN's ``eps``, the NTN's ``w``/``v``/``b``, the
 layer mixtures' ``link_psi`` ...) keeps its name and layout.
+
+The bespoke sharded teachers of ``parallel/distributed.py`` and
+``parallel/tensor_parallel.py`` keep plain dicts of tensors by the JAX
+names; ``dist_teacher_params`` and ``teacher_2d_params`` cut a rank's blocks
+from the whole dicts (the JAX package's ``init_dist_teacher`` /
+``init_2d_teacher`` as numpy, or the port's, which have the same layout).
 """
 from __future__ import annotations
 
@@ -45,6 +51,8 @@ from ..nn.norms import BatchNorm, GroupNorm, NormLayer
 from ..nn.residual import DenseConnection
 from ..parallel.comm import Comm
 from ..parallel.distgraph import shard_state_dict, slice_model_cols
+from ..parallel.distributed import local_slices, param_shardings
+from ..parallel.tensor_parallel import param_shardings_2d
 from ..propagation.cs import CSLinear, CSMLp
 
 # leaf name -> (port parameter name, transpose?)
@@ -224,3 +232,24 @@ def baseline_params_from_jax(flat: Mapping[str, np.ndarray], module: nn.Module
     ``Mine``, or one of their parts) holding the flax parameters and batch
     statistics ``flat`` of its JAX counterpart."""
     return state_dict_from_flax(flat, module)
+
+
+def _f32(params: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    return {k: np.asarray(v, np.float32) for k, v in params.items()}
+
+
+def dist_teacher_params(params: Mapping[str, np.ndarray], shard: int, n_shards: int,
+                        device="cuda") -> Dict[str, torch.Tensor]:
+    """Rank ``shard``'s tensors of the 1-D teacher's whole parameters: its
+    rows of the SE tables, the dense weights whole (``param_shardings``)."""
+    return local_slices(_f32(params), param_shardings(params), {"graph": shard},
+                        {"graph": n_shards}, device)
+
+
+def teacher_2d_params(params: Mapping[str, np.ndarray], coords: Mapping[str, int],
+                      sizes: Mapping[str, int], device="cuda") -> Dict[str, torch.Tensor]:
+    """The tensors of the 2-D teacher's rank at ``coords`` of a mesh of
+    ``sizes`` (``DeviceMesh.coords`` and ``.shape``): its column slices of
+    ``w0``, ``b0``, its rows and columns of ``se0``, its row slice of ``w1``
+    and ``b1`` whole (``param_shardings_2d``)."""
+    return local_slices(_f32(params), param_shardings_2d(params), coords, sizes, device)
