@@ -2,8 +2,8 @@
 propagation, link-prediction, self-supervised baseline, row-sharded (the
 teacher, the students, LP and C&S, link prediction), two-axis (host x
 card, graph x model), edge label propagation and bespoke sharded-teacher
-(all-gather SpMM, 1-D and 2-D SGD) paths, and its host library, on one
-CUDA card.
+(all-gather SpMM, 1-D and 2-D SGD) paths, its host library and its two
+bench scripts, on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -24,9 +24,10 @@ Phases (any failure exits non-zero; nothing is caught):
    (identical operands, only the summation order differs). Each case prints
    the kernel, plain and ``library_ms`` times (median of CUDA-event timed
    runs; ``library_ms`` is ``torch.sparse.mm`` of a CSR tensor, cuSPARSE,
-   which the port never calls), ``bound_ms`` (``bound``) and the kernel's
-   share of it. Two launches on the bench graph must be bit-identical, and
-   a call without a schedule (built from ``indptr``) must equal one with;
+   which the port never calls), ``bound_ms``
+   (``ops/spmm_kernels.py:spmm_bound``) and the kernel's share of it. Two
+   launches on the bench graph must be bit-identical, and a call without a
+   schedule (built from ``indptr``) must equal one with;
 3. the slice: the port's ``main`` on ogbn-arxiv's shape (synthetic stand-in,
    169,343 nodes, 128 features, hidden 256, 40 classes), 3 epochs, once with
    ``--spmm_method=auto`` (f32 kernel) and once with ``pallas_bf16`` (bf16
@@ -240,13 +241,24 @@ Phases (any failure exits non-zero; nothing is caught):
    moves; (iv) four ranks on the (graph 2, model 2) mesh (NCCL with four
    cards, else gloo): the 2-D step, 3 steps, held to its one-rank run
    likewise. Phase 14's seconds are printed.
+15. the bench twins as a benchmark runs them: ``python3 bench_torch.py``
+   and ``python3 bench_linkpred_torch.py`` as subprocesses, each with a hard
+   timeout. Each must exit 0 and print a last line that parses as JSON,
+   which is printed on a line of its own: the teacher bench's ``value``
+   finite and positive, ``dist_numerics_ok`` true, and its launch counts,
+   over the timed windows and over its ``--dist`` run's, exactly
+   ``2 x layers`` bf16 launches a timed step (forward and transposed
+   backward a layer) and none of the others; the link bench's ``mrr_test``
+   finite, its OGB-protocol MRR in (0, 1], and exactly 2 bf16 launches a
+   timed step (layer 2's forward and transposed backward; layer 1 is
+   hoisted). Phase 15's seconds are printed.
 
 Prints the kernels' JSON line (launches summed over every phase; phase 7's
 numbers under ``linkpred``, phase 8's under ``cli``, phase 9's under
 ``baselines``, phase 10's under ``sharded``, phase 11's under
 ``sharded_students``, phase 12's under ``hier`` and ``mesh_2d``, phase
-13's under ``native``, phase 14's under ``bespoke``), the card's name and
-power limit, then as the last line
+13's under ``native``, phase 14's under ``bespoke``, phase 15's under
+``bench_twins``), the card's name and power limit, then as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 import contextlib
@@ -371,16 +383,12 @@ ELP_SPLIT_NODES, ELP_SPLIT_EDGES, ELP_SPLIT_POS, ELP_SPLIT_NEG = 20_000, 100_000
 BESPOKE_HIDDEN, BESPOKE_LR, BESPOKE_SE_REG, BESPOKE_SEED = 256, 0.05, 1e-4, 0
 BESPOKE_STEPS, BESPOKE_SHARDED_STEPS, BESPOKE_REPS = 5, 3, 5
 BESPOKE_REL = 1e-4  # sharded records against the one-rank run (f32 sum order)
+# phase 15: the bench twins, each run as a benchmark runs it, with its timeout
+TWIN_TIMEOUT_S = 450
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def card() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
 
 
 def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -395,25 +403,6 @@ def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         events.append((s, e))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in events)
-
-
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA's data sheet), at 700 W
-F32_FLOPS = 67e12  # f32 outside the tensor cores, the same sheet
-
-
-def bound(g, d: int, bf16: bool) -> tuple:
-    """(ms, what bounds it): the least time the card could take for y = A @ x
-    on ``g``'s CSR at width d. Bytes: every x row some edge reads (bf16 where
-    the kernel reads bf16), y in f32, indices, weights and indptr, each
-    once, over the HBM rate; operations: 2 flops an edge and column over
-    the f32 rate. The larger of the two."""
-    elem = 2 if bf16 else 4
-    n_src = int(torch.unique(g.indices).numel())
-    nbytes = (n_src * d * elem + g.n_node * d * 4 + g.n_edge * (4 + elem)
-              + (g.n_node + 1) * 4)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 2 * g.n_edge * d / F32_FLOPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def library_fn(g, x, bf16: bool):
@@ -444,7 +433,7 @@ def compare(name, fn, g, x, plain_bf16, card_name, tag, reps: int = 20) -> dict:
     ms = median_ms(lambda: fn(*args, schedule=g.schedule), reps=reps)
     plain_ms = median_ms(lambda: K.spmm_csr_plain(*args, bf16=plain_bf16), reps=reps)
     library_ms = median_ms(library_fn(g, x, plain_bf16), reps=reps)
-    bound_ms, bound_by = bound(g, x.shape[1], plain_bf16)
+    bound_ms, bound_by = K.spmm_bound(g, x.shape[1], plain_bf16)
     log(f"  {name:14s} {tag:28s} d={x.shape[1]:3d} max_abs_err={abs_err:.3e} "
         f"rel_err={rel:.3e} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
         f"library_ms={library_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}) "
@@ -866,28 +855,18 @@ def propagation_phase(pd, card_name: str, totals: dict) -> dict:
 
 
 def lp_split(n_node: int, n_edge: int, n_pos: int = EVAL_POS, n_neg: int = EVAL_NEG):
-    """bench_linkpred.py:49-97 with the port's host copies: a power-law graph,
+    """``bench_linkpred_torch.py:build_split`` at seed 0 on a power-law graph:
     ``n_pos`` valid and ``n_pos`` test positives with ``n_neg`` sampled
     non-edges each, the other edges train; message edges = symmetrize(train).
     Returns (split_edge, message edges, host seconds)."""
+    from bench_linkpred_torch import build_split
     from gnn_tail_generalization_tpu_torch.data.synthetic import fast_powerlaw_graph
-    from gnn_tail_generalization_tpu_torch.graph.core import symmetrize
-    from gnn_tail_generalization_tpu_torch.linkpred import sampling
 
     t0 = time.perf_counter()
     e = fast_powerlaw_graph(n_node, n_edge, 0)
-    perm = np.random.default_rng(0).permutation(e.shape[1])
-    val, test = e[:, perm[:n_pos]], e[:, perm[n_pos:2 * n_pos]]
-    train = e[:, perm[2 * n_pos:]]
-    negs = sampling.rejection_sample_non_edges(
-        np.random.default_rng(1), sampling.edge_keys(e, n_node), n_node,
-        2 * n_pos * n_neg)
-    split_edge = {
-        "train": {"edge": train.T},
-        "valid": {"edge": val.T, "edge_neg": negs[:n_pos * n_neg]},
-        "test": {"edge": test.T, "edge_neg": negs[n_pos * n_neg:]},
-    }
-    return split_edge, symmetrize(train, n_node), time.perf_counter() - t0
+    split_edge, msg, _, _ = build_split(e, n_node, np.random.default_rng(0), 0,
+                                        n_pos, n_neg)
+    return split_edge, msg, time.perf_counter() - t0
 
 
 @contextlib.contextmanager
@@ -1066,10 +1045,7 @@ def linkpred_phase(card_name: str, totals: dict, dev) -> tuple:
     split_edge, msg, split_s = lp_split(C2_NODES, C2_EDGES)
     # the JAX package's bench config (bench_linkpred.py:100-105) and the
     # reference's default; both train SAGE on the same message graph
-    bench = lpm.LinkPredConfig(
-        encoder="SAGE", predictor="DOT", loss_func="ce_loss", use_node_feats=True,
-        train_node_emb=False, eval_metric="mrr", num_neg=3, batch_size=64 * 1024,
-        spmm_method="pallas_bf16")
+    bench = link_bench_config()
     default = lpm.LinkPredConfig()
     t0 = time.perf_counter()
     g_host = lpm.link_graph(bench, msg, C2_NODES)
@@ -2021,13 +1997,11 @@ def check_dist_propagation(comm, cfg, pd) -> dict:
 
 
 def link_bench_config(**kw):
-    """Phase 7's bench config (SAGE + DOT, ``pallas_bf16``), with ``kw``."""
-    from gnn_tail_generalization_tpu_torch.linkpred import model as lpm
+    """Phase 7's bench config (``bench_linkpred_torch.py:bench_config``:
+    SAGE + DOT, ``pallas_bf16``), with ``kw``."""
+    from bench_linkpred_torch import bench_config
 
-    return lpm.LinkPredConfig(**{**dict(
-        encoder="SAGE", predictor="DOT", loss_func="ce_loss", use_node_feats=True,
-        train_node_emb=False, eval_metric="mrr", num_neg=3, batch_size=64 * 1024,
-        spmm_method="pallas_bf16"), **kw})
+    return dataclasses.replace(bench_config(), **kw)
 
 
 def dist_link_rank(comm, reset) -> dict:
@@ -3259,6 +3233,70 @@ def bespoke_phase(pd, card_name: str, totals: dict, dev) -> dict:
     return out
 
 
+def run_twin(script: str) -> tuple:
+    """``python3 <script>`` from the checkout's root with its timeout: (its
+    JSON last line, parsed, and its seconds). Fails unless it exits 0."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-u", script],
+                         cwd=os.path.dirname(os.path.abspath(__file__)),
+                         capture_output=True, text=True, timeout=TWIN_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    if out.returncode != 0:
+        log(out.stderr[-4000:])
+        raise AssertionError(f"{script} exited {out.returncode}")
+    line = out.stdout.strip().splitlines()[-1]
+    rec = json.loads(line)
+    print(line, flush=True)
+    return rec, secs
+
+
+def bench_twins_phase(card_name: str, totals: dict) -> dict:
+    """Phase 15: both bench twins in subprocesses; their lines checked, their
+    launch counts added to ``totals``."""
+    import bench_linkpred_torch as LP
+    import bench_torch as BT
+
+    t_phase = time.perf_counter()
+    bench, bench_s = run_twin("bench_torch.py")
+    log(f"  bench_torch.py: {bench_s:.1f} s; step_ms {bench['step_ms']:.4f} "
+        f"(windows {[round(v, 4) for v in bench['step_ms_windows']]}), value "
+        f"{bench['value']}, vs_baseline {bench['vs_baseline']:.3f}, dist_step_ms "
+        f"{bench['dist_step_ms']:.4f}, dist rel diff {bench['dist_loss_rel_diff_max']:.3e} "
+        f"[{card_name}]")
+    assert np.isfinite(bench["value"]) and bench["value"] > 0, bench["value"]
+    assert bench["dist_numerics_ok"] is True, bench["dist_loss_rel_diff_max"]
+    timed = BT.WINDOWS * BT.TIMED_STEPS
+    assert bench["timed_steps"] == timed, bench["timed_steps"]
+    expect = {k: 0 for k in totals}
+    expect["spmm_csr_bf16"] = 2 * bench["num_layers"] * timed
+    for key in ("kernel_launches", "dist_kernel_launches"):
+        log(f"  bench_torch.py {key}: {bench[key]}, expected {expect}")
+        assert bench[key] == expect, (key, bench[key], expect)
+
+    link, link_s = run_twin("bench_linkpred_torch.py")
+    ogb = link["ogb_1000neg_eval"]
+    log(f"  bench_linkpred_torch.py: {link_s:.1f} s; step_ms {link['step_ms']:.4f}, "
+        f"warm_epoch_s {link['warm_epoch_s']:.4f}, warm_eval_s {ogb['warm_eval_s']:.4f}, "
+        f"mrr_test {link['mrr_test']:.4f}, OGB MRR {ogb['mrr']:.4f} [{card_name}]")
+    assert np.isfinite(link["mrr_test"]), link["mrr_test"]
+    assert 0 < ogb["mrr"] <= 1, ogb["mrr"]
+    assert (link["warm_epoch_steps"], link["timed_epochs"]) == (LP.TIMED_STEPS,
+                                                               LP.TIMED_EPOCHS)
+    expect_lp = {k: 0 for k in totals}
+    expect_lp["spmm_csr_bf16"] = 2 * LP.TIMED_STEPS * LP.TIMED_EPOCHS
+    log(f"  bench_linkpred_torch.py kernel_launches: {link['kernel_launches']}, "
+        f"expected {expect_lp}")
+    assert link["kernel_launches"] == expect_lp, (link["kernel_launches"], expect_lp)
+    for counts in (bench["kernel_launches"], bench["dist_kernel_launches"],
+                   link["kernel_launches"]):
+        for k, v in counts.items():
+            totals[k] += v
+    phase_s = time.perf_counter() - t_phase
+    log(f"  phase 15: {phase_s:.1f} s")
+    return {"phase_s": phase_s, "bench_torch": {**bench, "seconds": bench_s},
+            "bench_linkpred_torch": {**link, "seconds": link_s}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
@@ -3271,6 +3309,7 @@ def main() -> int:
     from gnn_tail_generalization_tpu_torch.ops import _build
     from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
     from gnn_tail_generalization_tpu_torch.train.loops import final_agg_view
+    from gnn_tail_generalization_tpu_torch.utils.device import card
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3413,6 +3452,10 @@ def main() -> int:
 
     log("== phase 14: the bespoke sharded teachers (all-gather SpMM, 1-D and 2-D SGD)")
     bespoke = bespoke_phase(pd, card_name, totals, dev)
+    torch.cuda.empty_cache()
+
+    log("== phase 15: the bench twins (bench_torch.py, bench_linkpred_torch.py)")
+    twins = bench_twins_phase(card_name, totals)
 
     assert totals["spmm_csr_plain"] == 0, totals
     kernels = [{"name": name, "route": "cuda", "source": SOURCE,
@@ -3423,7 +3466,8 @@ def main() -> int:
                       "propagation": propagation, "linkpred": linkpred,
                       "cli": cli, "baselines": baselines, "sharded": sharded,
                       "sharded_students": students_dist, **two_axis,
-                      "native": host_lib, "bespoke": bespoke, "card": card_name}))
+                      "native": host_lib, "bespoke": bespoke, "bench_twins": twins,
+                      "card": card_name}))
     print(card_name)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

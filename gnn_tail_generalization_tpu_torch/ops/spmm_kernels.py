@@ -33,10 +33,28 @@ from ..graph.core import RowSchedule, build_schedule, edge_rows
 
 LAUNCHES = {"spmm_csr_f32": 0, "spmm_csr_bf16": 0, "spmm_csr_plain": 0}
 
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA's data sheet), at 700 W
+F32_FLOPS = 67e12  # f32 outside the tensor cores, the same sheet
+
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def spmm_bound(g, d: int, bf16: bool) -> tuple:
+    """(ms, what bounds it): the least time an H100 could take for
+    y = A @ x on ``g``'s CSR at width d. Bytes: every x row some edge reads
+    (bf16 where the kernel reads bf16), y in f32, indices, weights and
+    indptr, each once, over the HBM rate; operations: 2 flops an edge and
+    column over the f32 rate. The larger of the two."""
+    elem = 2 if bf16 else 4
+    n_src = int(torch.unique(g.indices).numel())
+    nbytes = (n_src * d * elem + g.n_node * d * 4 + g.n_edge * (4 + elem)
+              + (g.n_node + 1) * 4)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * g.n_edge * d / F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 #: edges per ``index_add_`` of the plain version: its [chunk, d] gathered

@@ -19,7 +19,7 @@ also at d = 40) it prints:
   ``git show``);
 - ``library_ms`` and ``bound_ms``: ``chip_smoke.library_fn`` (torch.sparse.mm
   of a CSR tensor, cuSPARSE; x already in the working type, so its bf16
-  time has no rounding pass) and ``chip_smoke.bound``;
+  time has no rounding pass) and ``ops/spmm_kernels.py:spmm_bound``;
 - ``gather_ms``: the time HBM takes to read one source row per edge (E x d
   elements of the working type, no reuse in L2), and ``share_of_gather``,
   gather_ms / ms.
@@ -131,10 +131,10 @@ def time_case(tag, g, x, base, card_name, reps=20) -> dict:
         else:
             r["ms"] = chip_smoke.median_ms(fn, reps)
         r["library_ms"] = chip_smoke.median_ms(chip_smoke.library_fn(g, x, bf16), reps)
-        r["bound_ms"], r["bound_by"] = chip_smoke.bound(g, x.shape[1], bf16)
+        r["bound_ms"], r["bound_by"] = K.spmm_bound(g, x.shape[1], bf16)
         r["share_of_bound"] = r["bound_ms"] / r["ms"]
         r["gather_ms"] = (g.n_edge * x.shape[1] * (2 if bf16 else 4)
-                          / chip_smoke.HBM_BYTES_PER_S * 1e3)
+                          / K.HBM_BYTES_PER_S * 1e3)
         r["share_of_gather"] = r["gather_ms"] / r["ms"]
         rows[name] = r
         chip_smoke.log(
@@ -225,8 +225,9 @@ def main() -> int:
     from gnn_tail_generalization_tpu_torch.graph.core import (
         build_graph, standard_pipeline)
     from gnn_tail_generalization_tpu_torch.ops import _build
+    from gnn_tail_generalization_tpu_torch.utils.device import card
 
-    card_name = chip_smoke.card()
+    card_name = card()
     dev = torch.device("cuda")
     base = load_baseline(args.baseline) if args.baseline else None
     settings = [(f"T={t}", lambda g, t=int(t): with_threshold(g, t))

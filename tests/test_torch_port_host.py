@@ -290,7 +290,8 @@ def test_cal_recall_matches(rng):
             jm.cal_recall(pos, neg, topk), topk
 
 
-_NO_JAX = r"""
+# the prelude of a subprocess: any later import of JAX or the JAX package raises
+BLOCK_JAX = r"""
 import sys
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "gnn_tail_generalization_tpu")
 for m in [m for m in sys.modules if m.split(".")[0] in BLOCKED]:
@@ -303,6 +304,9 @@ class Block:
         return None
 
 sys.meta_path.insert(0, Block())
+"""
+
+_NO_JAX = BLOCK_JAX + r"""
 import importlib, pkgutil
 import numpy as np
 import gnn_tail_generalization_tpu_torch as pkg
