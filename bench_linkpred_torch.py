@@ -96,12 +96,38 @@ def ogb_eval_pairs(val, rng, n_node, n_pos=EVAL_POS, n_neg=OGB_NEG):
     return pos, neg
 
 
+def make_link_epoch(cfg, g, x, train, msg_edges, steps=TIMED_STEPS, seed=0):
+    """(epoch, model, const): the link step as ``train_linkpred`` assembles
+    it (``link_const``'s hoisted layer-1 aggregation, clip + Adam, the device
+    epoch of ``make_epoch_fn``) on the message graph ``g`` (on the card) and
+    features ``x`` (None: the config's trained embedding alone). ``epoch()``
+    runs ``steps`` train steps over the first ``steps`` x batch positives of
+    ``train`` [2, m] and returns their losses on the device; one generator
+    seeded ``seed`` draws the model, then each epoch's permutation and
+    negatives."""
+    from gnn_tail_generalization_tpu_torch.linkpred import model as lpm
+    from gnn_tail_generalization_tpu_torch.linkpred import sampling
+
+    dev, n_node = g.indptr.device, g.n_node
+    const = lpm.link_const(cfg, g, x)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    with torch.device(dev):
+        model = lpm.LinkPredModel(cfg, n_node, 0 if x is None else x.shape[1],
+                                  generator=gen)
+    bsz = cfg.batch_size
+    pos_all = torch.as_tensor(train.T[: steps * bsz].astype(np.int64), device=dev)
+    epoch = lpm.make_epoch_fn(cfg, model, lpm.make_optimizer(cfg, model.parameters()),
+                              n_node, steps, bsz, pos_all.shape[0])
+    keys = sampling.build_membership(sampling.edge_keys(msg_edges, n_node)).to(dev)
+    model.train()
+    return (lambda: epoch(const, pos_all, keys, gen)), model, const
+
+
 def main(n_node=N_NODE, n_edge=N_EDGE, n_feat=N_FEAT, eval_pos=EVAL_POS,
          num_neg_eval=NUM_NEG_EVAL, seed=0):
     from gnn_tail_generalization_tpu_torch.data.synthetic import fast_powerlaw_graph
     from gnn_tail_generalization_tpu_torch.linkpred import metrics as M
     from gnn_tail_generalization_tpu_torch.linkpred import model as lpm
-    from gnn_tail_generalization_tpu_torch.linkpred import sampling
     from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
     from gnn_tail_generalization_tpu_torch.utils.device import device_info, resolve_device
 
@@ -134,21 +160,13 @@ def main(n_node=N_NODE, n_edge=N_EDGE, n_feat=N_FEAT, eval_pos=EVAL_POS,
 
     # the step timed: the library pieces train_linkpred uses, assembled once
     g = lpm.link_graph(cfg, msg_edges, n_node).to(dev)
-    const = lpm.link_const(cfg, g, x)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    with torch.device(dev):
-        model = lpm.LinkPredModel(cfg, n_node, n_feat, generator=gen)
+    epoch, model, const = make_link_epoch(cfg, g, x, train, msg_edges, seed=seed)
     bsz = cfg.batch_size
-    epoch = lpm.make_epoch_fn(cfg, model, lpm.make_optimizer(cfg, model.parameters()),
-                              n_node, TIMED_STEPS, bsz, TIMED_STEPS * bsz)
-    pos_all = torch.as_tensor(train.T[: TIMED_STEPS * bsz].astype(np.int64), device=dev)
-    keys = sampling.build_membership(sampling.edge_keys(msg_edges, n_node)).to(dev)
-    model.train()
 
     def timed_epoch() -> float:
         torch.cuda.synchronize()
         t = time.perf_counter()
-        losses = epoch(const, pos_all, keys, gen)
+        losses = epoch()
         torch.cuda.synchronize()
         t = time.perf_counter() - t
         if not torch.isfinite(losses).all():

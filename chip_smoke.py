@@ -2,8 +2,8 @@
 propagation, link-prediction, self-supervised baseline, row-sharded (the
 teacher, the students, LP and C&S, link prediction), two-axis (host x
 card, graph x model), edge label propagation and bespoke sharded-teacher
-(all-gather SpMM, 1-D and 2-D SGD) paths, its host library and its two
-bench scripts, on one CUDA card.
+(all-gather SpMM, 1-D and 2-D SGD) paths, its host library, its two
+bench scripts and its profiler, on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -252,13 +252,22 @@ Phases (any failure exits non-zero; nothing is caught):
    finite, its OGB-protocol MRR in (0, 1], and exactly 2 bf16 launches a
    timed step (layer 2's forward and transposed backward; layer 1 is
    hoisted). Phase 15's seconds are printed.
+16. the profiler: ``python3 profile_step.py --cell GroupNorm`` (the cheapest
+   cell that runs B1 and a norm) as a subprocess, its traces in a
+   directory under ``_chip/`` that is removed. It must exit 0 and print a
+   last line that parses as JSON; the cell's JSON is printed on a line of
+   its own. Its op classes must sum to its device ms within 1e-6
+   relative, its idle share lie in [0, 1), and its launch counts over the
+   profiled epochs equal ``expected_launches`` (plain 0). Phase 16's
+   seconds are printed.
 
 Prints the kernels' JSON line (launches summed over every phase; phase 7's
 numbers under ``linkpred``, phase 8's under ``cli``, phase 9's under
 ``baselines``, phase 10's under ``sharded``, phase 11's under
 ``sharded_students``, phase 12's under ``hier`` and ``mesh_2d``, phase
 13's under ``native``, phase 14's under ``bespoke``, phase 15's under
-``bench_twins``), the card's name and power limit, then as the last line
+``bench_twins``, phase 16's under ``profile``), the card's name and power
+limit, then as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 import contextlib
@@ -385,6 +394,8 @@ BESPOKE_STEPS, BESPOKE_SHARDED_STEPS, BESPOKE_REPS = 5, 3, 5
 BESPOKE_REL = 1e-4  # sharded records against the one-rank run (f32 sum order)
 # phase 15: the bench twins, each run as a benchmark runs it, with its timeout
 TWIN_TIMEOUT_S = 450
+# phase 16: profile_step.py's cheapest cell that runs B1 and a norm
+PROFILE_CELL = "GroupNorm"
 
 
 def log(msg: str) -> None:
@@ -1321,13 +1332,19 @@ def checkpoint_phase(pd, card_name: str, totals: dict, root: str) -> dict:
             "prog_repeat_launches": again_counts}
 
 
+def scratch_dir(prefix: str) -> str:
+    """A new directory under the checkout's ``_chip/`` (gitignored); the
+    caller removes it."""
+    scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_chip")
+    os.makedirs(scratch, exist_ok=True)
+    return tempfile.mkdtemp(prefix=prefix, dir=scratch)
+
+
 def cli_phase(gb, pd, card_name: str, totals: dict, slice_step_ms: dict) -> dict:
     """Phase 8: the rest of the single-device CLI on the card. Its files go
     to a directory under ``_chip/`` (gitignored), removed at the end."""
     t_phase = time.perf_counter()
-    scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_chip")
-    os.makedirs(scratch, exist_ok=True)
-    root = tempfile.mkdtemp(prefix="phase8-", dir=scratch)
+    root = scratch_dir("phase8-")
     try:
         log("  (i) a full-size fake ogbn-arxiv raw set through the reader and main")
         readers = reader_phase(card_name, totals, os.path.join(root, "data"))
@@ -3233,21 +3250,18 @@ def bespoke_phase(pd, card_name: str, totals: dict, dev) -> dict:
     return out
 
 
-def run_twin(script: str) -> tuple:
-    """``python3 <script>`` from the checkout's root with its timeout: (its
-    JSON last line, parsed, and its seconds). Fails unless it exits 0."""
+def run_twin(*argv: str) -> tuple:
+    """``python3 <argv>`` from the checkout's root with the twins' timeout:
+    (its JSON last line, parsed, and its seconds). Fails unless it exits 0."""
     t0 = time.perf_counter()
-    out = subprocess.run([sys.executable, "-u", script],
+    out = subprocess.run([sys.executable, "-u", *argv],
                          cwd=os.path.dirname(os.path.abspath(__file__)),
                          capture_output=True, text=True, timeout=TWIN_TIMEOUT_S)
     secs = time.perf_counter() - t0
     if out.returncode != 0:
         log(out.stderr[-4000:])
-        raise AssertionError(f"{script} exited {out.returncode}")
-    line = out.stdout.strip().splitlines()[-1]
-    rec = json.loads(line)
-    print(line, flush=True)
-    return rec, secs
+        raise AssertionError(f"{' '.join(argv)} exited {out.returncode}")
+    return json.loads(out.stdout.strip().splitlines()[-1]), secs
 
 
 def bench_twins_phase(card_name: str, totals: dict) -> dict:
@@ -3258,6 +3272,7 @@ def bench_twins_phase(card_name: str, totals: dict) -> dict:
 
     t_phase = time.perf_counter()
     bench, bench_s = run_twin("bench_torch.py")
+    print(json.dumps(bench), flush=True)
     log(f"  bench_torch.py: {bench_s:.1f} s; step_ms {bench['step_ms']:.4f} "
         f"(windows {[round(v, 4) for v in bench['step_ms_windows']]}), value "
         f"{bench['value']}, vs_baseline {bench['vs_baseline']:.3f}, dist_step_ms "
@@ -3274,6 +3289,7 @@ def bench_twins_phase(card_name: str, totals: dict) -> dict:
         assert bench[key] == expect, (key, bench[key], expect)
 
     link, link_s = run_twin("bench_linkpred_torch.py")
+    print(json.dumps(link), flush=True)
     ogb = link["ogb_1000neg_eval"]
     log(f"  bench_linkpred_torch.py: {link_s:.1f} s; step_ms {link['step_ms']:.4f}, "
         f"warm_epoch_s {link['warm_epoch_s']:.4f}, warm_eval_s {ogb['warm_eval_s']:.4f}, "
@@ -3295,6 +3311,42 @@ def bench_twins_phase(card_name: str, totals: dict) -> dict:
     log(f"  phase 15: {phase_s:.1f} s")
     return {"phase_s": phase_s, "bench_torch": {**bench, "seconds": bench_s},
             "bench_linkpred_torch": {**link, "seconds": link_s}}
+
+
+def profile_phase(pd, card_name: str, totals: dict) -> dict:
+    """Phase 16: ``profile_step.py``'s ``PROFILE_CELL`` in a subprocess; its
+    JSON checked, its launch counts added to ``totals``."""
+    from gnn_tail_generalization_tpu_torch import main as port_main
+    from gnn_tail_generalization_tpu_torch.config import build_config
+
+    t_phase = time.perf_counter()
+    out_dir = scratch_dir("phase16-")
+    try:
+        report, secs = run_twin("profile_step.py", "--cell", PROFILE_CELL, "--out", out_dir)
+    finally:
+        shutil.rmtree(out_dir)
+    cell = report["cells"][PROFILE_CELL]
+    print(json.dumps(cell), flush=True)
+    classes = sum(cell["by_class_ms"].values())
+    top = sorted(cell["share"].items(), key=lambda kv: -kv[1])[:3]
+    log(f"  profile_step.py --cell {PROFILE_CELL}: {secs:.1f} s; step_ms "
+        f"{cell['step_ms']:.4f}, device ms a step {cell['device_ms_per_step']:.4f}, "
+        f"launches a step {cell['launches_per_step']:.1f}, idle share "
+        f"{cell['loop_idle_share']:.4f}, top classes "
+        f"{[(k, round(v, 4)) for k, v in top]} [{card_name}]")
+    assert abs(classes - cell["device_ms"]) <= 1e-6 * cell["device_ms"], (
+        classes, cell["device_ms"])
+    assert 0 <= cell["loop_idle_share"] < 1, cell["loop_idle_share"]
+    argv = TRICK_BASE + TRICK_RUNS[PROFILE_CELL]
+    cfg = port_main.fitted_to(build_config(**port_main.parse_args(argv)[0]), pd)
+    expect = expected_launches(cfg, report["epochs"])
+    log(f"  kernel_launches {cell['kernel_launches']}, expected {expect}")
+    assert cell["kernel_launches"] == expect, (cell["kernel_launches"], expect)
+    for k, v in cell["kernel_launches"].items():
+        totals[k] += v
+    phase_s = time.perf_counter() - t_phase
+    log(f"  phase 16: {phase_s:.1f} s")
+    return {"phase_s": phase_s, "seconds": secs, PROFILE_CELL: cell}
 
 
 def main() -> int:
@@ -3457,6 +3509,9 @@ def main() -> int:
     log("== phase 15: the bench twins (bench_torch.py, bench_linkpred_torch.py)")
     twins = bench_twins_phase(card_name, totals)
 
+    log(f"== phase 16: the profiler (profile_step.py --cell {PROFILE_CELL})")
+    profile = profile_phase(pd, card_name, totals)
+
     assert totals["spmm_csr_plain"] == 0, totals
     kernels = [{"name": name, "route": "cuda", "source": SOURCE,
                 "replaces": KERNELS[name], "launches": totals[name], **stats[name]}
@@ -3467,7 +3522,7 @@ def main() -> int:
                       "cli": cli, "baselines": baselines, "sharded": sharded,
                       "sharded_students": students_dist, **two_axis,
                       "native": host_lib, "bespoke": bespoke, "bench_twins": twins,
-                      "card": card_name}))
+                      "profile": profile, "card": card_name}))
     print(card_name)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

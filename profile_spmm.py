@@ -17,6 +17,8 @@ also at d = 40) it prints:
   timed in turns with the port's: base, port, port, base (such a source is
   ``csrc/spmm_csr.cu`` of a commit before the row schedule, taken out with
   ``git show``);
+- ``plain_ms``: the plain version (``spmm_csr_plain``, the bf16 one with
+  its rounding) on the same inputs;
 - ``library_ms`` and ``bound_ms``: ``chip_smoke.library_fn`` (torch.sparse.mm
   of a CSR tensor, cuSPARSE; x already in the working type, so its bf16
   time has no rounding pass) and ``ops/spmm_kernels.py:spmm_bound``;
@@ -130,6 +132,8 @@ def time_case(tag, g, x, base, card_name, reps=20) -> dict:
                      f"{b2:.4f})")
         else:
             r["ms"] = chip_smoke.median_ms(fn, reps)
+        r["plain_ms"] = chip_smoke.median_ms(lambda: K.spmm_csr_plain(
+            g.indptr, g.indices, g.weight, x, bf16=bf16), reps)
         r["library_ms"] = chip_smoke.median_ms(chip_smoke.library_fn(g, x, bf16), reps)
         r["bound_ms"], r["bound_by"] = K.spmm_bound(g, x.shape[1], bf16)
         r["share_of_bound"] = r["bound_ms"] / r["ms"]
@@ -139,7 +143,8 @@ def time_case(tag, g, x, base, card_name, reps=20) -> dict:
         rows[name] = r
         chip_smoke.log(
             f"  {tag:24s} {name:4s} d={x.shape[1]} E={g.n_edge} ms={r['ms']:.4f}"
-            f"{extra} library_ms={r['library_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
+            f"{extra} plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
+            f"bound_ms={r['bound_ms']:.4f} "
             f"({r['bound_by']}) share={r['share_of_bound']:.3f} "
             f"gather_ms={r['gather_ms']:.4f} share_of_gather={r['share_of_gather']:.3f} "
             f"rel_err={rel:.2e} [{card_name}]")

@@ -1,70 +1,117 @@
-"""Where the device time of the port's TeacherGNN epoch goes, on one CUDA card.
+"""Where the device time of each path of the port goes, on one CUDA card.
 
-    python3 profile_step.py [--epochs 6] [--out chiprun_out/profile]
-    python3 profile_step.py --bench
+    python3 profile_step.py [--cell NAME ...] [--epochs 6] [--out DIR]
 
-For each SpMM route of the slice (``--spmm_method=auto``: the f32 kernel;
-``pallas_bf16``: the bf16 kernel), with the node-classification loss and
-with the I2-GTL edgewise loss (``--exp_mode=I2_GTL --task=nodeC``), this
-calls the port's ``main`` on ogbn-arxiv's shape (the synthetic stand-in that
-``chip_smoke.py`` trains) twice in one process: 3 unprofiled epochs to warm CUDA, cuBLAS and the
-kernel build, then ``--epochs`` epochs under ``torch.profiler``. Each epoch
-is one train step (forward, backward, Adam) and one eval-mode forward.
+Each cell drives one path that users pay for (PERF.md §1) through the port's
+entry points on the card, with TF32 off as ``main`` runs: it builds its
+workload (``cells``), runs its window once unprofiled to warm CUDA, cuBLAS
+and the kernel build, then runs it again under ``torch.profiler``, ending in
+``torch.cuda.synchronize()``. ``--cell`` may be repeated; with none, every
+cell runs, in the order below. The window of each cell:
 
-From the profiled run's device events (the chrome trace, written to
-``--out``) it prints, per cell:
+- ``auto``, ``pallas_bf16``, ``I2_GTL auto``, ``I2_GTL pallas_bf16``: the
+  TeacherGNN on ogbn-arxiv's shape (``chip_smoke.py``'s slice), each SpMM
+  route with the node-classification or the I2-GTL edgewise loss;
+  ``GroupNorm``, ``DenseNoNorm-attention``: two tricks of ``chip_smoke.py``'s
+  trick zoo. ``--epochs`` epochs of ``train/loops.py:run_experiment``, each
+  one train step and one eval forward, on the data ``main`` builds for the
+  same flags (``parse_args``, ``build_config``, ``load_prepared``);
+- ``bench``: ``bench_torch.py``'s framework step, ``bench_torch.TIMED_STEPS``
+  steps; ``sharded S=1``: the same step on one rank's ``prepare_sharded``
+  (``bench_torch.py --dist``'s layout, no process group);
+- ``semlp part1``, ``semlp part2``: one ``train_semlp_part1`` /
+  ``train_semlp_part2`` call of ``--epochs`` epochs (part 2's eval included)
+  on the arxiv SEMLP config, after its teacher and SE table, unprofiled;
+- ``replace``: one ``ops/topk_attention.py:latent_neighbor_replace`` of
+  ``chip_smoke.REPLACE_BATCH`` part-1 queries against that [N, 512] table;
+- ``LP``: one ``run_pure_lp`` call (50 propagations at d = 40); ``C&S``: one
+  ``propagation/cs.py:run_cs_pipeline`` call (diffusion features,
+  ``chip_smoke.CS_EPOCHS`` mid-step epochs);
+- ``link bench``, ``link default``: one 16-step epoch of
+  ``linkpred/model.py:make_epoch_fn`` on ``bench_linkpred_torch.py``'s
+  citation2 split (built once for both), with the twin's bench config and
+  with ``LinkPredConfig()``;
+- ``DGI``: ``baselines/dgi.py:train_dgi``, 5 epochs, on that split's message
+  edges through the baselines' graph pipeline, degree one-hot width 64.
 
-- device ms by class: the SpMM kernels (every kernel the SpMM wrappers
-  launch: light rows, hub chunks, their reduction), GEMMs, host<->device
-  copies, and all other kernels (elementwise passes, reductions, casts),
-  with their shares of the device time, and the SpMM launches by kernel;
-- the busy share of the device over the training loop, from its first
-  kernel to its last device event (the set-up copies of ``train_teacher``
-  come before that window); the idle share is one minus it;
-- the kernels that took the most device time, and the host step ms.
+From the profiled window's device events (the chrome trace, written to
+``--out``) each cell reports: device ms by op class (``op_class``), with
+shares; the busy and idle shares of the device from the window's first
+kernel to its last device event; ``steps`` (the epochs, train steps or
+calls the window holds) and ``step_ms`` (host ms a step: the trainers'
+median step, else the window over its steps); ``device_ms_per_step`` and
+``launches_per_step`` (device kernels over steps: how fragmented the eager
+passes are); ``kernel_launches``, the SpMM wrappers' counts over the window;
+where the window runs SpMMs, ``spmm_bound_ms``, the least time of its SpMMs a
+step by ``ops/spmm_kernels.py:spmm_bound`` on the CSR and width each call was
+given; and the kernels that took the most device time.
 
-``--bench`` profiles ``bench_torch.py``'s framework step instead (the
-teacher at the ogbn-arxiv shape on the bench's power-law graph, the bf16
-kernel, the loss-masked last layer, TF32 off): 16 warm-up steps, then one
-of the bench's timed windows (``bench_torch.TIMED_STEPS`` steps ending in
-one synchronize) under ``torch.profiler``; ``step_ms`` is that window over
-its steps, and the loop's span runs from its first kernel to its last event.
-
-The last line is one JSON object with these numbers and the card's name and
-power limit. Exits non-zero without a CUDA card or when the trace holds no
-device events.
+The last line is one JSON object with every cell and the card's name and
+power limit. An unknown ``--cell`` exits non-zero naming the known cells.
+Exits non-zero without a CUDA card, when a trace holds no device kernels,
+or when a window's loss or output is not finite.
 """
 import argparse
 import collections
+import contextlib
+import dataclasses
+import functools
+import gc
 import json
 import os
 import re
+import statistics
 import sys
 import time
+import types
+from typing import Callable
 
+import numpy as np
 import torch
 
-SLICE_ARGS = ["--dataset=ogbn-arxiv", "--train_which=TeacherGNN",
-              "--device=cuda", "--log_every=0"]
-#: cell name -> its flags: each SpMM route, with either teacher loss
-CELLS = {f"{loss}{method}": [f"--spmm_method={method}"] + flags
-         for loss, flags in (("", []), ("I2_GTL ", ["--exp_mode=I2_GTL",
-                                                    "--task=nodeC"]))
-         for method in ("auto", "pallas_bf16")}
+import bench_linkpred_torch as BL
+import bench_torch as BT
+from chip_smoke import (BASELINE_HIDDEN, CS_EPOCHS, LP_ARGS, REPLACE_BATCH, SEMLP_ARGS,
+                        SLICE_ARGS, TRICK_BASE, TRICK_RUNS)
+
+EPOCHS = 6  # --epochs' default
+DGI_EPOCHS = 5
+PROFILED_TRICKS = ("GroupNorm", "DenseNoNorm-attention")
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 #: the SpMM wrappers' kernels (csrc/spmm_csr.cu): light rows, hub chunks and
 #: their reduction
 SPMM_KERNEL = re.compile(r"\bspmm_\w+_kernel\b")
+#: (class, pattern) of device kernels, tried in order: the first match names
+#: the class. A kernel's name carries its functor in the template arguments
+#: (a cast runs as an elementwise kernel over ``direct_copy_kernel_cuda``, a
+#: random draw as ``distribution_elementwise_grid_stride_kernel``), so the
+#: specific classes come before ``elementwise``
+KERNEL_CLASSES = (
+    ("spmm", SPMM_KERNEL),
+    ("gemm", re.compile(r"gemm|gemv|cutlass|cublas|nvjet|splitKreduce", re.I)),
+    ("optimizer", re.compile(r"multi_tensor_apply|foreach", re.I)),
+    ("rng", re.compile(r"philox|distribution_elementwise|fused_dropout", re.I)),
+    ("cast/copy", re.compile(r"copy_kernel|CatArrayBatchedCopy")),
+    ("sort/top-k", re.compile(r"sort|radix|topk|bitonic|cub::", re.I)),
+    ("softmax", re.compile(r"softmax", re.I)),
+    ("index", re.compile(r"index_elementwise|indexing_|index_select|indexSelect|indexFunc"
+                         r"|index_put|gather|scatter|embedding", re.I)),
+    ("reduction", re.compile(r"reduce_kernel|_norm_|norm_kernel|GammaBeta|moments|welford"
+                             r"|nll_loss", re.I)),
+    ("elementwise", re.compile(r"elementwise_kernel")),
+)
 
 
 def op_class(cat: str, name: str) -> str:
+    """The class of one device event: ``copies`` and ``memset`` for the
+    memcpy and memset categories, else the first of ``KERNEL_CLASSES`` whose
+    pattern the kernel's name matches, else ``other``."""
     if cat != "kernel":
         return "copies" if cat == "gpu_memcpy" else "memset"
-    if SPMM_KERNEL.search(name):
-        return "spmm"
-    if re.search(r"gemm|cutlass|cublas", name, re.I):
-        return "gemm"
-    return "other kernels"
+    for cls, pattern in KERNEL_CLASSES:
+        if pattern.search(name):
+            return cls
+    return "other"
 
 
 def busy_ms(intervals) -> float:
@@ -82,18 +129,23 @@ def busy_ms(intervals) -> float:
     return total / 1e3
 
 
-def summarize(trace_path: str) -> dict:
+def summarize(trace_path: str, steps: int = 1) -> dict:
+    """Device time by class and the loop's busy and idle shares of the
+    chrome trace at ``trace_path``, whose window holds ``steps`` steps."""
     with open(trace_path) as f:
         events = [e for e in json.load(f)["traceEvents"]
                   if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
-    if not any(e["cat"] == "kernel" for e in events):
+    kernels = [e for e in events if e["cat"] == "kernel"]
+    if not kernels:
         raise RuntimeError(f"{trace_path} holds no device kernels: the "
                            "profiler did not trace the card")
     by_class = collections.Counter()
     by_kernel = collections.Counter()
     launches = collections.Counter()
+    class_of = {}
     for e in events:
-        by_class[op_class(e["cat"], e["name"])] += e["dur"] / 1e3
+        cls = class_of[e["name"]] = op_class(e["cat"], e["name"])
+        by_class[cls] += e["dur"] / 1e3
         by_kernel[e["name"]] += e["dur"] / 1e3
         launches[e["name"]] += 1
     spmm_launches = collections.Counter()  # by kernel, over its instances
@@ -102,7 +154,7 @@ def summarize(trace_path: str) -> dict:
         if m:
             spmm_launches[m.group(0)] += n
     total = sum(by_class.values())
-    t0 = min(e["ts"] for e in events if e["cat"] == "kernel")
+    t0 = min(e["ts"] for e in kernels)
     loop = [(e["ts"], e["ts"] + e["dur"]) for e in events if e["ts"] >= t0]
     span = (max(end for _, end in loop) - t0) / 1e3
     busy = busy_ms(loop)
@@ -112,96 +164,372 @@ def summarize(trace_path: str) -> dict:
         "share": {k: v / total for k, v in by_class.items()},
         "loop_span_ms": span,
         "loop_busy_ms": busy,
+        "loop_busy_share": busy / span,
         "loop_idle_share": 1.0 - busy / span,
+        "device_ms_per_step": total / steps,
+        "launches_per_step": len(kernels) / steps,
         "spmm_launches": dict(spmm_launches),
-        "top_kernels": [(k[:70], v, launches[k])
+        "top_kernels": [(k[:90], v, launches[k], class_of[k])
                         for k, v in by_kernel.most_common(12)],
     }
 
 
-def profiled(fn, out_dir: str, cell: str) -> tuple:
-    """(fn's result, ``summarize`` of its trace) for ``fn`` run under
-    ``torch.profiler``; the trace is written to ``out_dir``."""
-    with torch.profiler.profile(activities=[
+@contextlib.contextmanager
+def recorded_spmm_calls(calls: list):
+    """Appends (indptr, indices, width, bf16) of every call of the SpMM
+    wrappers (``ops/spmm_kernels.py``) inside the block to ``calls``."""
+    from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
+
+    def recording(fn, bf16):
+        def call(indptr, indices, weight, x, schedule=None):
+            calls.append((indptr, indices, x.shape[1], bf16))
+            return fn(indptr, indices, weight, x, schedule)
+        return call
+
+    saved = K.spmm_csr_f32, K.spmm_csr_bf16
+    K.spmm_csr_f32, K.spmm_csr_bf16 = recording(saved[0], False), recording(saved[1], True)
+    try:
+        yield
+    finally:
+        K.spmm_csr_f32, K.spmm_csr_bf16 = saved
+
+
+def spmm_bound_ms(calls) -> float:
+    """The least time of the recorded SpMM calls (``spmm_bound`` of each
+    call's CSR at its width), in ms."""
+    from gnn_tail_generalization_tpu_torch.ops.spmm_kernels import spmm_bound
+
+    memo, total = {}, 0.0  # a CSR's bound at a width, computed once
+    for indptr, indices, d, bf16 in calls:
+        key = (indptr.data_ptr(), indices.data_ptr(), indices.numel(), d, bf16)
+        if key not in memo:
+            csr = types.SimpleNamespace(indices=indices, n_node=indptr.numel() - 1,
+                                        n_edge=indices.numel())
+            memo[key] = spmm_bound(csr, d, bf16)[0]
+        total += memo[key]
+    return total
+
+
+@dataclasses.dataclass
+class Window:
+    """A cell's profiled window. ``run()`` runs it and returns (host ms a
+    step, the loss or output that must be finite); it holds ``steps``
+    steps."""
+    run: Callable[[], tuple]
+    steps: int
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _repeat(step, n: int):
+    """``step()`` ``n`` times; the last result."""
+    for _ in range(n):
+        out = step()
+    return out
+
+
+def _timed(dev, steps: int, fn) -> tuple:
+    """(host ms a step of ``fn()`` ending in a synchronize, its result)."""
+    _sync(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(dev)
+    return (time.perf_counter() - t0) / steps * 1e3, out
+
+
+def node_workload(argv, n_node=None, n_feat=None, n_hidden=None, n_class=None):
+    """(cfg, prepared data) for the flags ``argv`` as the port's ``main``
+    builds them (``parse_args``, ``build_config``, ``load_prepared``): the
+    dataset's synthetic stand-in at its preset shapes, or at the sizes
+    given."""
+    from gnn_tail_generalization_tpu_torch import main as port_main
+    from gnn_tail_generalization_tpu_torch.config import build_config
+
+    overrides, ns = port_main.parse_args(argv)
+    cfg = build_config(**overrides)
+    if n_node is not None:
+        cfg = dataclasses.replace(cfg, N_nodes=n_node, num_feats=n_feat,
+                                  num_classes=n_class, dim_hidden=n_hidden)
+    return port_main.load_prepared(cfg, ns.data_root)
+
+
+def trainer_cell(argv, epochs: int, device="cuda", **size) -> Window:
+    """``epochs`` epochs of ``run_experiment`` on ``argv``'s workload."""
+    from gnn_tail_generalization_tpu_torch.train.loops import run_experiment
+    from gnn_tail_generalization_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device(device)
+    cfg, pd = node_workload(argv, **size)
+
+    def run():
+        res = run_experiment(cfg, pd, seed=cfg.random_seed, epochs=epochs, device=dev)
+        return statistics.median(res.step_ms), res.records
+    return Window(run, epochs)
+
+
+def semlp_teacher(dev, **size) -> tuple:
+    """(cfg, prepared data, teacher SE table) of the arxiv SEMLP config: the
+    teacher trained as ``run_experiment`` trains it, then its SE table."""
+    from gnn_tail_generalization_tpu_torch.train.loops import (collect_teacher_se,
+                                                               train_teacher)
+
+    cfg, pd = node_workload(SEMLP_ARGS, **size)
+    teacher = train_teacher(cfg, pd, cfg.random_seed, device=dev)
+    return cfg, pd, collect_teacher_se(cfg, pd, teacher.best_state_dict, device=dev)
+
+
+def semlp_cell(part: int, epochs: int, device="cuda", **size) -> Window:
+    """One ``train_semlp_part1`` (``part`` 1) or ``train_semlp_part2`` call
+    of ``epochs`` epochs; part 2 after an unprofiled part 1."""
+    from gnn_tail_generalization_tpu_torch.train import loops
+    from gnn_tail_generalization_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device(device)
+    cfg, pd, se = semlp_teacher(dev, **size)
+    seed = cfg.random_seed
+    if part == 1:
+        def call():
+            return loops.train_semlp_part1(cfg, pd, se, seed, epochs, device=dev)
+    else:
+        p1 = loops.train_semlp_part1(cfg, pd, se, seed, device=dev)
+
+        def call():
+            return loops.train_semlp_part2(cfg, pd, se, p1, seed, epochs, device=dev)
+
+    def run():
+        res = call()
+        return statistics.median(res.step_ms), res.records
+    return Window(run, epochs)
+
+
+def replace_cell(device="cuda", **size) -> Window:
+    """One ``latent_neighbor_replace`` of ``REPLACE_BATCH`` part-1 outputs
+    (of the first nodes' features) against the SEMLP teacher's SE table."""
+    from gnn_tail_generalization_tpu_torch.models.semlp import SEMLPPart1
+    from gnn_tail_generalization_tpu_torch.ops.topk_attention import latent_neighbor_replace
+    from gnn_tail_generalization_tpu_torch.train.loops import train_semlp_part1
+    from gnn_tail_generalization_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device(device)
+    cfg, pd, se = semlp_teacher(dev, **size)
+    p1 = train_semlp_part1(cfg, pd, se, cfg.random_seed, device=dev)
+    with torch.device("meta"):
+        part1 = SEMLPPart1(cfg, se.shape[1])
+    part1.load_state_dict(p1.state_dict, assign=True)
+    part1.to(dev).eval()
+    with torch.no_grad():
+        q = part1(torch.as_tensor(pd.x[:REPLACE_BATCH], device=dev))
+    k = cfg.SEMLP_topK_2_replace
+    return Window(lambda: _timed(dev, 1, lambda: latent_neighbor_replace(q, se, k)), 1)
+
+
+def lp_cell(device="cuda", **size) -> Window:
+    """One ``run_pure_lp`` call: the DAD adjacency on the host, then 50
+    propagations on the card."""
+    from gnn_tail_generalization_tpu_torch.train.loops import run_pure_lp
+    from gnn_tail_generalization_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device(device)
+    cfg, pd = node_workload(LP_ARGS, **size)
+    return Window(lambda: _timed(dev, 1, lambda: np.array(
+        list(run_pure_lp(cfg, pd, device=dev).values()))), 1)
+
+
+def cs_cell(device="cuda", **size) -> Window:
+    """One ``run_cs_pipeline`` call as ``chip_smoke.py`` phase 6 runs it:
+    diffusion features, ``CS_EPOCHS`` mid-step epochs, C&S."""
+    from gnn_tail_generalization_tpu_torch.propagation.cs import run_cs_pipeline
+    from gnn_tail_generalization_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device(device)
+    cfg, pd = node_workload(LP_ARGS + ["--force_set_to_best_config=0"], **size)
+    cfg = dataclasses.replace(cfg, preStep=dataclasses.replace(
+        cfg.preStep, pre_methods="diffusion"))
+    return Window(lambda: _timed(dev, 1, lambda: run_cs_pipeline(
+        cfg, pd, epochs=CS_EPOCHS, device=dev)["out"]), 1)
+
+
+@functools.lru_cache(maxsize=1)
+def citation2(n_node=BL.N_NODE, n_edge=BL.N_EDGE, eval_pos=BL.EVAL_POS,
+              num_neg_eval=BL.NUM_NEG_EVAL) -> tuple:
+    """(n_node, message edges, train edges [2, m]) of
+    ``bench_linkpred_torch.py``'s split at seed 0; built once for the cells
+    that share it."""
+    from gnn_tail_generalization_tpu_torch.data.synthetic import fast_powerlaw_graph
+
+    e = fast_powerlaw_graph(n_node, n_edge, 0)
+    _, msg, train, _ = BL.build_split(e, n_node, np.random.default_rng(0), 0,
+                                      eval_pos, num_neg_eval)
+    return n_node, msg, train
+
+
+def link_cell(kind: str, device="cuda", steps=BL.TIMED_STEPS, n_feat=BL.N_FEAT,
+              batch_size=None, **split) -> Window:
+    """One ``steps``-step epoch of the link trainer on the citation2 split:
+    ``kind`` "bench" (the twin's config, features drawn on the card) or
+    "default" (``LinkPredConfig()``, the trained embedding)."""
+    from gnn_tail_generalization_tpu_torch.linkpred import model as lpm
+    from gnn_tail_generalization_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device(device)
+    n, msg, train = citation2(**split)
+    cfg = BL.bench_config() if kind == "bench" else lpm.LinkPredConfig()
+    if batch_size is not None:
+        cfg = dataclasses.replace(cfg, batch_size=batch_size)
+    x = None
+    if cfg.use_node_feats:
+        x = torch.randn(n, n_feat, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(0))
+    g = lpm.link_graph(cfg, msg, n).to(dev)
+    epoch, _, _ = BL.make_link_epoch(cfg, g, x, train, msg, steps)
+    return Window(lambda: _timed(dev, steps, epoch), steps)
+
+
+def dgi_cell(device="cuda", epochs=DGI_EPOCHS, n_hidden=BASELINE_HIDDEN, **split) -> Window:
+    """``train_dgi`` for ``epochs`` epochs on the citation2 split's message
+    edges through ``gen_baseline_embs``'s graph pipeline."""
+    from gnn_tail_generalization_tpu_torch.baselines.api import degree_bucketing
+    from gnn_tail_generalization_tpu_torch.baselines.dgi import train_dgi
+    from gnn_tail_generalization_tpu_torch.graph.core import build_graph, standard_pipeline
+    from gnn_tail_generalization_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device(device)
+    n, msg, _ = citation2(**split)
+    e = standard_pipeline(msg, n)
+    g = build_graph(e, n, with_dense=n <= 4096, with_plans=n > 4096).to(dev)
+    x = degree_bucketing(e, n, max_degree=n_hidden)
+
+    def run():
+        stats = {}
+        train_dgi(g, x, n_hidden, epochs=epochs, device=dev, stats=stats)
+        return statistics.median(stats["epoch_ms"]), np.array(stats["loss"])
+    return Window(run, epochs)
+
+
+def bench_cell(device="cuda", steps=BT.TIMED_STEPS, **size) -> Window:
+    """``steps`` of ``bench_torch.py``'s framework step."""
+    from gnn_tail_generalization_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device(device)
+    cfg, pd = BT.build_workload(**size)
+    step, _ = BT.make_framework_step(cfg, pd, dev)
+    return Window(lambda: _timed(dev, steps, lambda: _repeat(step, steps)), steps)
+
+
+def sharded_cell(device="cuda", steps=BT.TIMED_STEPS, **size) -> Window:
+    """``steps`` of the framework step on one rank's ``prepare_sharded``
+    (``bench_torch.py --dist``'s layout: rb ``DIST_RB``, no process group)."""
+    from gnn_tail_generalization_tpu_torch.data.datasets import prepare_sharded
+    from gnn_tail_generalization_tpu_torch.parallel.comm import Comm
+    from gnn_tail_generalization_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device(device)
+    cfg, data = BT.build_raw_workload(**size)
+    comm = Comm(0, 1, dev, "nccl" if dev.type == "cuda" else "gloo")
+    pd = prepare_sharded(data, cfg, comm, rb=BT.DIST_RB)
+    step, _ = BT.make_framework_step(cfg, pd, dev)
+    return Window(lambda: _timed(dev, steps, lambda: _repeat(step, steps)), steps)
+
+
+def cells(epochs: int = EPOCHS) -> dict:
+    """Cell name -> a function that builds the cell's workload on ``device``
+    (sizes as keywords, the full shapes by default) and returns its
+    ``Window``; ``epochs`` is the teacher, trick and student windows'."""
+    teacher = {f"{loss}{m}": functools.partial(
+        trainer_cell, SLICE_ARGS + [f"--spmm_method={m}"] + flags, epochs)
+        for loss, flags in (("", []), ("I2_GTL ", ["--exp_mode=I2_GTL", "--task=nodeC"]))
+        for m in ("auto", "pallas_bf16")}
+    tricks = {name: functools.partial(trainer_cell, TRICK_BASE + TRICK_RUNS[name], epochs)
+              for name in PROFILED_TRICKS}
+    return {**teacher, "bench": bench_cell, "sharded S=1": sharded_cell,
+            "semlp part1": functools.partial(semlp_cell, 1, epochs),
+            "semlp part2": functools.partial(semlp_cell, 2, epochs),
+            "replace": replace_cell, **tricks, "LP": lp_cell, "C&S": cs_cell,
+            "link bench": functools.partial(link_cell, "bench"),
+            "link default": functools.partial(link_cell, "default"), "DGI": dgi_cell}
+
+
+def finite(out) -> bool:
+    if isinstance(out, torch.Tensor):
+        return bool(torch.isfinite(out).all())
+    return bool(np.isfinite(np.asarray(out)).all())
+
+
+def profile_cell(name: str, build, out_dir: str) -> dict:
+    """Builds the cell, warms it with one unprofiled run of its window, and
+    profiles a second run; the summary of its trace and the fields of the
+    module docstring."""
+    from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
+
+    w = build()
+    w.run()
+    K.reset_launch_counts()
+    calls = []
+    with recorded_spmm_calls(calls), torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
-        res = fn()
-    trace = os.path.join(out_dir, f"trace_{cell.replace(' ', '_')}.json")
+        step_ms, out = w.run()
+        torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    if not finite(out):
+        raise RuntimeError(f"cell {name!r}: non-finite loss or output {out}")
+    if len(calls) != sum(launches.values()):
+        raise RuntimeError(f"cell {name!r}: {len(calls)} SpMM wrapper calls recorded "
+                           f"against launch counts {launches}")
+    trace = os.path.join(out_dir, f"trace_{re.sub(r'[^A-Za-z0-9]+', '_', name)}.json")
     prof.export_chrome_trace(trace)
-    return res, summarize(trace)
+    s = summarize(trace, w.steps)
+    s.update(steps=w.steps, step_ms=step_ms, kernel_launches=launches,
+             spmm_bound_ms=spmm_bound_ms(calls) / w.steps if calls else None)
+    return s
 
 
 def print_cell(title: str, s: dict) -> None:
     print(f"== {title}")
-    print(f"  device ms {s['device_ms']:.3f}; loop span "
+    print(f"  {s['steps']} steps, step_ms {s['step_ms']:.4f}; device ms "
+          f"{s['device_ms']:.3f} ({s['device_ms_per_step']:.4f} a step, "
+          f"{s['launches_per_step']:.1f} kernels a step); loop span "
           f"{s['loop_span_ms']:.3f} ms, busy {s['loop_busy_ms']:.3f} ms, "
           f"idle share {s['loop_idle_share']:.4f}")
     for k, v in sorted(s["by_class_ms"].items(), key=lambda kv: -kv[1]):
-        print(f"  {k:14s} {v:9.3f} ms  {100 * s['share'][k]:5.1f}%")
-    print(f"  spmm launches {s['spmm_launches']}")
-    for name, ms, n in s["top_kernels"]:
-        print(f"    {ms:9.3f} ms {n:5d}x  {name}")
-    print(f"  step_ms {[round(t, 3) for t in s['step_ms']]}")
+        print(f"  {k:12s} {v:10.3f} ms  {100 * s['share'][k]:5.1f}%")
+    bound = s["spmm_bound_ms"]
+    print(f"  kernel launches {s['kernel_launches']}; spmm kernels {s['spmm_launches']}"
+          + ("" if bound is None else f"; SpMM bound {bound:.4f} ms a step"))
+    for name, ms, n, cls in s["top_kernels"]:
+        print(f"    {ms:9.3f} ms {n:6d}x  {cls:11s} {name}")
 
 
-def bench_cell(out_dir: str) -> dict:
-    """``bench_torch.py``'s framework step: warmed up, then one of the
-    bench's timed windows profiled, ending in one synchronize."""
-    import bench_torch as BT
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    cfg, pd = BT.build_workload()
-    step, _ = BT.make_framework_step(cfg, pd)
-    for _ in range(BT.TIMED_STEPS):
-        step()
-    torch.cuda.synchronize()
-
-    def window():
-        t0 = time.perf_counter()
-        for _ in range(BT.TIMED_STEPS):
-            step()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) / BT.TIMED_STEPS * 1e3
-
-    ms, s = profiled(window, out_dir, "bench")
-    s["step_ms"] = [ms]
-    s["steps"] = BT.TIMED_STEPS
-    s["n_edge"] = pd.graph.n_edge
-    return s
-
-
-def main() -> int:
+def main(argv=None) -> int:
+    names = list(cells())
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--epochs", type=int, default=6)
-    ap.add_argument("--bench", action="store_true",
-                    help="profile bench_torch.py's framework step instead")
+    ap.add_argument("--cell", action="append", choices=names,
+                    help="a cell to profile (repeatable); default: every cell")
+    ap.add_argument("--epochs", type=int, default=EPOCHS)
     ap.add_argument("--out", default=os.path.join("chiprun_out", "profile"))
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_step: torch finds no CUDA device", file=sys.stderr)
         return 2
-    from gnn_tail_generalization_tpu_torch import main as port_main
     from gnn_tail_generalization_tpu_torch.utils.device import card
 
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     card_name = card()
     os.makedirs(args.out, exist_ok=True)
-    if args.bench:
-        s = bench_cell(args.out)
-        report = {"card": card_name, "cells": {"bench": s}}
-        print_cell(f"bench_torch.py framework step: {s['steps']} steps, {card_name}", s)
-        print(card_name)
-        print(json.dumps(report))
-        return 0
+    registry = cells(args.epochs)
     report = {"card": card_name, "epochs": args.epochs, "cells": {}}
-    for cell, flags in CELLS.items():
-        argv = SLICE_ARGS + flags
-        port_main.main(argv + ["--epochs=3"])  # warm-up, not profiled
-        res, s = profiled(lambda: port_main.main(argv + [f"--epochs={args.epochs}"]),
-                          args.out, cell)
-        s["step_ms"] = res[0].step_ms
-        report["cells"][cell] = s
-        print_cell(f"{' '.join(flags)}: {args.epochs} epochs, {card_name}", s)
+    for name in args.cell or names:
+        t0 = time.perf_counter()
+        s = profile_cell(name, registry[name], args.out)
+        s["cell_s"] = time.perf_counter() - t0
+        report["cells"][name] = s
+        print_cell(f"{name}: {s['cell_s']:.1f} s, {card_name}", s)
+        gc.collect()
+        torch.cuda.empty_cache()
     print(card_name)
     print(json.dumps(report))
     return 0

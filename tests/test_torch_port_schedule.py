@@ -241,7 +241,7 @@ def test_wrapper_refuses_the_schedule_of_another_csr(rng, wrapper):
     ("void (anonymous namespace)::spmm_hub_chunk_kernel<__nv_bfloat16, 8, 1>(int)", "spmm"),
     ("(anonymous namespace)::spmm_hub_reduce_kernel(float const*, float*)", "spmm"),
     ("sm80_xmma_gemm_f32f32_f32f32_f32_tn_n_tilesize128x128x8", "gemm"),
-    ("void at::native::vectorized_elementwise_kernel<4>(int)", "other kernels")])
+    ("void at::native::vectorized_elementwise_kernel<4>(int)", "elementwise")])
 def test_profile_step_counts_every_spmm_kernel_as_spmm(name, cls):
     import profile_step
 
