@@ -252,14 +252,16 @@ Phases (any failure exits non-zero; nothing is caught):
    finite, its OGB-protocol MRR in (0, 1], and exactly 2 bf16 launches a
    timed step (layer 2's forward and transposed backward; layer 1 is
    hoisted). Phase 15's seconds are printed.
-16. the profiler: ``python3 profile_step.py --cell GroupNorm`` (the cheapest
-   cell that runs B1 and a norm) as a subprocess, its traces in a
-   directory under ``_chip/`` that is removed. It must exit 0 and print a
-   last line that parses as JSON; the cell's JSON is printed on a line of
-   its own. Its op classes must sum to its device ms within 1e-6
-   relative, its idle share lie in [0, 1), and its launch counts over the
-   profiled epochs equal ``expected_launches`` (plain 0). Phase 16's
-   seconds are printed.
+16. the profiler: ``python3 profile_step.py --cell GroupNorm --cell LP``
+   (the cheapest cell that runs B1 and a norm, and the cheapest host-bound
+   cell) as a subprocess, its traces in a directory under ``_chip/`` that
+   is removed. It must exit 0 and print a last line that parses as JSON;
+   each cell's JSON is printed on a line of its own. Each cell's op classes
+   must sum to its device ms within 1e-6 relative, its idle share lie in
+   [0, 1), and its launch counts over the profiled window equal the
+   expected (GroupNorm: ``expected_launches``; LP: 50 f32; plain 0). The
+   LP cell must carry a non-empty ``host_top`` (its host attribution under
+   cProfile) whose shares lie in [0, 1]. Phase 16's seconds are printed.
 
 Prints the kernels' JSON line (launches summed over every phase; phase 7's
 numbers under ``linkpred``, phase 8's under ``cli``, phase 9's under
@@ -394,8 +396,9 @@ BESPOKE_STEPS, BESPOKE_SHARDED_STEPS, BESPOKE_REPS = 5, 3, 5
 BESPOKE_REL = 1e-4  # sharded records against the one-rank run (f32 sum order)
 # phase 15: the bench twins, each run as a benchmark runs it, with its timeout
 TWIN_TIMEOUT_S = 450
-# phase 16: profile_step.py's cheapest cell that runs B1 and a norm
-PROFILE_CELL = "GroupNorm"
+# phase 16: profile_step.py's cheapest cell that runs B1 and a norm, and
+# its cheapest host-bound cell, which runs the host attribution
+PROFILE_CELLS = ("GroupNorm", "LP")
 
 
 def log(msg: str) -> None:
@@ -1554,24 +1557,13 @@ def baselines_phase(msg, gb, card_name: str, totals: dict, dev) -> dict:
                                         "context_s": stats.get("context_s")}
         del embs
 
-    rng = np.random.default_rng(6)
-    t0 = time.perf_counter()
-    keep = rng.random(e_b.shape[1]) > 0.3
-    gm = build_graph(e_b[:, keep], gb.n_node, with_dense=False)
-    cents = sp.compute_centralities(e_b, gb.n_node)
-    host_s = time.perf_counter() - t0
-    n_b, half = gb.n_node, 2048
-    pos = e_b[:, rng.integers(0, e_b.shape[1], half)].T
-    link_edges = np.concatenate([pos, rng.integers(0, n_b, (half, 2))])
-    link_labels = np.concatenate([np.ones(half), np.zeros(half)]).astype(np.int32)
-    pairs = rng.integers(0, n_b, (2 * half, 2))
-    cent_labels = (cents[pairs[:, 0]] > cents[pairs[:, 1]]).astype(np.int32)
+    (gm, *pairs), host_s = timed(lambda: struct_pretrain_inputs(e_b, gb.n_node))
+    n_b = gb.n_node
     model = sp.StructFeatPretrain(BASELINE_HIDDEN, BASELINE_HIDDEN,
                                   generator=torch.Generator().manual_seed(0)).to(dev)
     K.reset_launch_counts()
     loss = model(gb.to(dev), gm.to(dev), torch.as_tensor(x_b, device=dev),
-                 *(torch.as_tensor(a, device=dev)
-                   for a in (link_edges, link_labels, pairs, cent_labels)))
+                 *(torch.as_tensor(a, device=dev) for a in pairs))
     loss.backward()
     counts = dict(K.LAUNCHES)
     grads_ok = all(torch.isfinite(p.grad).all() for p in model.parameters())
@@ -1594,6 +1586,26 @@ def baselines_phase(msg, gb, card_name: str, totals: dict, dev) -> dict:
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"  phase 9: {out['phase_s']:.1f} s")
     return out
+
+
+def struct_pretrain_inputs(e: np.ndarray, n_node: int, half: int = 2048) -> tuple:
+    """(the graph of ``e`` [2, E] with 30% of its edges masked, link edges
+    [2 * half, 2] (``half`` of ``e`` then ``half`` random pairs), their
+    labels, node pairs [2 * half, 2], their centrality labels): the inputs
+    of one ``StructFeatPretrain`` step, drawn from a seed."""
+    from gnn_tail_generalization_tpu_torch.baselines import structure_pretrain as sp
+    from gnn_tail_generalization_tpu_torch.graph.core import build_graph
+
+    rng = np.random.default_rng(6)
+    keep = rng.random(e.shape[1]) > 0.3
+    gm = build_graph(e[:, keep], n_node, with_dense=False)
+    cents = sp.compute_centralities(e, n_node)
+    pos = e[:, rng.integers(0, e.shape[1], half)].T
+    link_edges = np.concatenate([pos, rng.integers(0, n_node, (half, 2))])
+    link_labels = np.concatenate([np.ones(half), np.zeros(half)]).astype(np.int32)
+    pairs = rng.integers(0, n_node, (2 * half, 2))
+    cent_labels = (cents[pairs[:, 0]] > cents[pairs[:, 1]]).astype(np.int32)
+    return gm, link_edges, link_labels, pairs, cent_labels
 
 
 def bucket_phase(edges: np.ndarray, gb, card_name: str) -> dict:
@@ -3314,39 +3326,54 @@ def bench_twins_phase(card_name: str, totals: dict) -> dict:
 
 
 def profile_phase(pd, card_name: str, totals: dict) -> dict:
-    """Phase 16: ``profile_step.py``'s ``PROFILE_CELL`` in a subprocess; its
-    JSON checked, its launch counts added to ``totals``."""
+    """Phase 16: ``profile_step.py``'s ``PROFILE_CELLS`` in a subprocess;
+    its JSON checked, its launch counts added to ``totals``."""
     from gnn_tail_generalization_tpu_torch import main as port_main
     from gnn_tail_generalization_tpu_torch.config import build_config
 
     t_phase = time.perf_counter()
     out_dir = scratch_dir("phase16-")
     try:
-        report, secs = run_twin("profile_step.py", "--cell", PROFILE_CELL, "--out", out_dir)
+        report, secs = run_twin("profile_step.py", *(a for c in PROFILE_CELLS
+                                                      for a in ("--cell", c)),
+                                "--out", out_dir)
     finally:
         shutil.rmtree(out_dir)
-    cell = report["cells"][PROFILE_CELL]
-    print(json.dumps(cell), flush=True)
-    classes = sum(cell["by_class_ms"].values())
-    top = sorted(cell["share"].items(), key=lambda kv: -kv[1])[:3]
-    log(f"  profile_step.py --cell {PROFILE_CELL}: {secs:.1f} s; step_ms "
-        f"{cell['step_ms']:.4f}, device ms a step {cell['device_ms_per_step']:.4f}, "
-        f"launches a step {cell['launches_per_step']:.1f}, idle share "
-        f"{cell['loop_idle_share']:.4f}, top classes "
-        f"{[(k, round(v, 4)) for k, v in top]} [{card_name}]")
-    assert abs(classes - cell["device_ms"]) <= 1e-6 * cell["device_ms"], (
-        classes, cell["device_ms"])
-    assert 0 <= cell["loop_idle_share"] < 1, cell["loop_idle_share"]
-    argv = TRICK_BASE + TRICK_RUNS[PROFILE_CELL]
+    log(f"  profile_step.py {' '.join(f'--cell {c}' for c in PROFILE_CELLS)}: {secs:.1f} s")
+    trick, lp = PROFILE_CELLS
+    argv = TRICK_BASE + TRICK_RUNS[trick]
     cfg = port_main.fitted_to(build_config(**port_main.parse_args(argv)[0]), pd)
-    expect = expected_launches(cfg, report["epochs"])
-    log(f"  kernel_launches {cell['kernel_launches']}, expected {expect}")
-    assert cell["kernel_launches"] == expect, (cell["kernel_launches"], expect)
-    for k, v in cell["kernel_launches"].items():
-        totals[k] += v
+    expect = {trick: expected_launches(cfg, report["epochs"]),
+              lp: {k: (N_PROP if k == "spmm_csr_f32" else 0) for k in totals}}
+    out = {}
+    for name in PROFILE_CELLS:
+        cell = out[name] = report["cells"][name]
+        print(json.dumps(cell), flush=True)
+        classes = sum(cell["by_class_ms"].values())
+        top = sorted(cell["share"].items(), key=lambda kv: -kv[1])[:3]
+        log(f"  {name}: step_ms {cell['step_ms']:.4f}, device ms a step "
+            f"{cell['device_ms_per_step']:.4f}, launches a step "
+            f"{cell['launches_per_step']:.1f}, idle share {cell['loop_idle_share']:.4f}, "
+            f"window wall {cell['wall_ms']:.3f} ms, host-bound {cell['host_bound']}, top "
+            f"classes {[(k, round(v, 4)) for k, v in top]} [{card_name}]")
+        assert abs(classes - cell["device_ms"]) <= 1e-6 * cell["device_ms"], (
+            name, classes, cell["device_ms"])
+        assert 0 <= cell["loop_idle_share"] < 1, (name, cell["loop_idle_share"])
+        log(f"  {name} kernel_launches {cell['kernel_launches']}, expected {expect[name]}")
+        assert cell["kernel_launches"] == expect[name], (name, cell["kernel_launches"],
+                                                        expect[name])
+        for k, v in cell["kernel_launches"].items():
+            totals[k] += v
+    host_top = out[lp].get("host_top")
+    log(f"  {lp} host, cumulative, of a {out[lp].get('host_wall_ms', float('nan')):.3f} ms "
+        f"run under cProfile (unprofiled {out[lp]['wall_ms']:.3f} ms):")
+    for r in host_top or []:
+        log(f"    {r['s']:9.4f} s {r['share']:7.4f}  {r['function']}")
+    assert host_top, f"{lp}: no host_top (host-bound {out[lp]['host_bound']})"
+    assert all(0 <= r["share"] <= 1 for r in host_top), host_top
     phase_s = time.perf_counter() - t_phase
     log(f"  phase 16: {phase_s:.1f} s")
-    return {"phase_s": phase_s, "seconds": secs, PROFILE_CELL: cell}
+    return {"phase_s": phase_s, "seconds": secs, **out}
 
 
 def main() -> int:
@@ -3509,7 +3536,7 @@ def main() -> int:
     log("== phase 15: the bench twins (bench_torch.py, bench_linkpred_torch.py)")
     twins = bench_twins_phase(card_name, totals)
 
-    log(f"== phase 16: the profiler (profile_step.py --cell {PROFILE_CELL})")
+    log(f"== phase 16: the profiler (profile_step.py, cells {', '.join(PROFILE_CELLS)})")
     profile = profile_phase(pd, card_name, totals)
 
     assert totals["spmm_csr_plain"] == 0, totals

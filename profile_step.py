@@ -1,4 +1,5 @@
-"""Where the device time of each path of the port goes, on one CUDA card.
+"""Where the device time of each path of the port goes, on one CUDA card,
+and where the host time goes on the paths that leave the card idle.
 
     python3 profile_step.py [--cell NAME ...] [--epochs 6] [--out DIR]
 
@@ -6,16 +7,19 @@ Each cell drives one path that users pay for (PERF.md §1) through the port's
 entry points on the card, with TF32 off as ``main`` runs: it builds its
 workload (``cells``), runs its window once unprofiled to warm CUDA, cuBLAS
 and the kernel build, then runs it again under ``torch.profiler``, ending in
-``torch.cuda.synchronize()``. ``--cell`` may be repeated; with none, every
-cell runs, in the order below. The window of each cell:
+``torch.cuda.synchronize()``, and once more unprofiled on the host clock
+(``wall_ms``). ``--cell`` may be repeated; with none, every cell runs, in
+the order below. The window of each cell:
 
 - ``auto``, ``pallas_bf16``, ``I2_GTL auto``, ``I2_GTL pallas_bf16``: the
   TeacherGNN on ogbn-arxiv's shape (``chip_smoke.py``'s slice), each SpMM
-  route with the node-classification or the I2-GTL edgewise loss;
-  ``GroupNorm``, ``DenseNoNorm-attention``: two tricks of ``chip_smoke.py``'s
-  trick zoo. ``--epochs`` epochs of ``train/loops.py:run_experiment``, each
-  one train step and one eval forward, on the data ``main`` builds for the
-  same flags (``parse_args``, ``build_config``, ``load_prepared``);
+  route with the node-classification or the I2-GTL edgewise loss; the
+  eight tricks of ``chip_smoke.TRICK_RUNS`` (``BatchNorm``, ``GroupNorm``,
+  ``PairNorm``, ``DenseNoNorm-attention``, ``Jumping``, ``DropEdge``,
+  ``LADIES``, ``FastGCN-bf16``). ``--epochs`` epochs of
+  ``train/loops.py:run_experiment``, each one train step and one eval
+  forward, on the data ``main`` builds for the same flags (``parse_args``,
+  ``build_config``, ``load_prepared``);
 - ``bench``: ``bench_torch.py``'s framework step, ``bench_torch.TIMED_STEPS``
   steps; ``sharded S=1``: the same step on one rank's ``prepare_sharded``
   (``bench_torch.py --dist``'s layout, no process group);
@@ -31,8 +35,23 @@ cell runs, in the order below. The window of each cell:
   ``linkpred/model.py:make_epoch_fn`` on ``bench_linkpred_torch.py``'s
   citation2 split (built once for both), with the twin's bench config and
   with ``LinkPredConfig()``;
-- ``DGI``: ``baselines/dgi.py:train_dgi``, 5 epochs, on that split's message
-  edges through the baselines' graph pipeline, degree one-hot width 64.
+- ``DGI``, ``EGI``, ``VGAE``: ``baselines/dgi.py:train_dgi``,
+  ``egi.py:train_egi``, ``vgae.py:train_vgae``, ``DGI_EPOCHS`` epochs each,
+  on that split's message edges through the baselines' graph pipeline
+  (built once for the three), degree one-hot width 64, hidden 64 (VGAE's
+  latent 32); ``DGI call``: one ``baselines/api.py:gen_baseline_embs`` of
+  DGI for ``DGI_EPOCHS`` epochs on those message edges, the graph pipeline
+  and build included;
+- ``GIN masking``, ``GIN contextpred``: ``baselines/pretrain_gin.py:
+  train_pretrain_gin`` for ``DGI_EPOCHS`` epochs on ``chip_smoke.py``'s
+  bench graph (169,343 nodes, 2,501,571 edges; contextpred's 128 centres
+  and their context graphs built in the call); ``struct pretrain``: one
+  ``StructFeatPretrain`` loss and backward on that graph and its
+  30%-edge-masked copy (``chip_smoke.struct_pretrain_inputs``);
+- ``edge LP logit``, ``edge LP emb``: one ``linkpred/edge_lp.py:
+  run_logit_lp`` / ``run_emb_lp`` call over the bench graph's 1,166,243
+  raw edges (cap ``ELP_CAP``, ``ELP_PROPS`` propagations, embeddings of
+  width ``ELP_EMB_D``), the edge graph's host build included.
 
 From the profiled window's device events (the chrome trace, written to
 ``--out``) each cell reports: device ms by op class (``op_class``), with
@@ -46,6 +65,15 @@ where the window runs SpMMs, ``spmm_bound_ms``, the least time of its SpMMs a
 step by ``ops/spmm_kernels.py:spmm_bound`` on the CSR and width each call was
 given; and the kernels that took the most device time.
 
+A cell whose unprofiled window takes more than ``HOST_BOUND`` times its
+device time (``host_bound``) runs its window once more under ``cProfile``
+(``host_profile``) and reports ``host_top``: the ``HOST_TOP`` functions of
+the port's package, numpy and scipy (the host library's ctypes wrappers are
+the package's) with the most cumulative host seconds, each with its share
+of that run's wall time ``host_wall_ms``, which stands beside ``wall_ms``
+to show cProfile's overhead. A share is cumulative: a function's callees
+are in it, so the shares of a call chain nest and do not add up.
+
 The last line is one JSON object with every cell and the card's name and
 power limit. An unknown ``--cell`` exits non-zero naming the known cells.
 Exits non-zero without a CUDA card, when a trace holds no device kernels,
@@ -54,11 +82,13 @@ or when a window's loss or output is not finite.
 import argparse
 import collections
 import contextlib
+import cProfile
 import dataclasses
 import functools
 import gc
 import json
 import os
+import pstats
 import re
 import statistics
 import sys
@@ -71,12 +101,19 @@ import torch
 
 import bench_linkpred_torch as BL
 import bench_torch as BT
-from chip_smoke import (BASELINE_HIDDEN, CS_EPOCHS, LP_ARGS, REPLACE_BATCH, SEMLP_ARGS,
-                        SLICE_ARGS, TRICK_BASE, TRICK_RUNS)
+from chip_smoke import (BASELINE_HIDDEN, BENCH_EDGES, BENCH_NODES, CS_EPOCHS, ELP_CAP,
+                        ELP_EMB_D, ELP_PROPS, LP_ARGS, REPLACE_BATCH, SEMLP_ARGS, SLICE_ARGS,
+                        TRICK_BASE, TRICK_RUNS, struct_pretrain_inputs)
 
 EPOCHS = 6  # --epochs' default
-DGI_EPOCHS = 5
-PROFILED_TRICKS = ("GroupNorm", "DenseNoNorm-attention")
+DGI_EPOCHS = 5  # the baselines' and GIN pretrainers' epochs
+#: a cell is host-bound when its unprofiled window takes more than this
+#: many times its device time
+HOST_BOUND = 2.0
+HOST_TOP = 10  # functions in a host-bound cell's ``host_top``
+#: where a function of ``host_top`` may live: the port's package (with the
+#: host library's wrappers), numpy and scipy
+HOST_PACKAGES = ("gnn_tail_generalization_tpu_torch", "numpy", "scipy")
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 #: the SpMM wrappers' kernels (csrc/spmm_csr.cu): light rows, hub chunks and
 #: their reduction
@@ -91,11 +128,12 @@ KERNEL_CLASSES = (
     ("gemm", re.compile(r"gemm|gemv|cutlass|cublas|nvjet|splitKreduce", re.I)),
     ("optimizer", re.compile(r"multi_tensor_apply|foreach", re.I)),
     ("rng", re.compile(r"philox|distribution_elementwise|fused_dropout", re.I)),
-    ("cast/copy", re.compile(r"copy_kernel|CatArrayBatchedCopy")),
-    ("sort/top-k", re.compile(r"sort|radix|topk|bitonic|cub::", re.I)),
+    ("cast/copy", re.compile(r"copy_kernel|CatArrayBatchedCopy|roll_cuda_kernel")),
+    ("sort/top-k", re.compile(r"sort|radix|topk|bitonic|cub::|fill_reverse_indices", re.I)),
     ("softmax", re.compile(r"softmax", re.I)),
+    # ``compute_cuda_kernel`` is ``repeat_interleave``'s
     ("index", re.compile(r"index_elementwise|indexing_|index_select|indexSelect|indexFunc"
-                         r"|index_put|gather|scatter|embedding", re.I)),
+                         r"|index_put|gather|scatter|embedding|\bcompute_cuda_kernel\b", re.I)),
     ("reduction", re.compile(r"reduce_kernel|_norm_|norm_kernel|GammaBeta|moments|welford"
                              r"|nll_loss", re.I)),
     ("elementwise", re.compile(r"elementwise_kernel")),
@@ -388,25 +426,147 @@ def link_cell(kind: str, device="cuda", steps=BL.TIMED_STEPS, n_feat=BL.N_FEAT,
     return Window(lambda: _timed(dev, steps, epoch), steps)
 
 
-def dgi_cell(device="cuda", epochs=DGI_EPOCHS, n_hidden=BASELINE_HIDDEN, **split) -> Window:
-    """``train_dgi`` for ``epochs`` epochs on the citation2 split's message
-    edges through ``gen_baseline_embs``'s graph pipeline."""
+@functools.lru_cache(maxsize=1)
+def baseline_graph(n_hidden=BASELINE_HIDDEN, **split) -> tuple:
+    """(host graph, degree one-hot features of width ``n_hidden``) of the
+    citation2 split's message edges through ``gen_baseline_embs``'s graph
+    pipeline; built once for the DGI, EGI and VGAE cells."""
     from gnn_tail_generalization_tpu_torch.baselines.api import degree_bucketing
-    from gnn_tail_generalization_tpu_torch.baselines.dgi import train_dgi
     from gnn_tail_generalization_tpu_torch.graph.core import build_graph, standard_pipeline
+
+    n, msg, _ = citation2(**split)
+    e = standard_pipeline(msg, n)
+    g = build_graph(e, n, with_dense=n <= 4096, with_plans=n > 4096)
+    return g, degree_bucketing(e, n, max_degree=n_hidden)
+
+
+def baseline_cell(alg: str, device="cuda", epochs=DGI_EPOCHS, n_hidden=BASELINE_HIDDEN,
+                  **split) -> Window:
+    """``train_dgi``, ``train_egi`` or ``train_vgae`` (``alg``) for
+    ``epochs`` epochs on ``baseline_graph``, hidden ``n_hidden``."""
+    from gnn_tail_generalization_tpu_torch.baselines.dgi import train_dgi
+    from gnn_tail_generalization_tpu_torch.baselines.egi import train_egi
+    from gnn_tail_generalization_tpu_torch.baselines.vgae import train_vgae
+    from gnn_tail_generalization_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device(device)
+    g_host, x = baseline_graph(n_hidden, **split)
+    g = g_host.to(dev)
+    train = {"DGI": train_dgi, "EGI": train_egi, "VGAE": train_vgae}[alg]
+
+    def run():
+        stats = {}
+        train(g, x, n_hidden, epochs=epochs, device=dev, stats=stats)
+        return statistics.median(stats["epoch_ms"]), np.array(stats["loss"])
+    return Window(run, epochs)
+
+
+def dgi_call_cell(device="cuda", epochs=DGI_EPOCHS, n_hidden=BASELINE_HIDDEN,
+                  **split) -> Window:
+    """One ``gen_baseline_embs(..., "DGI")`` of ``epochs`` epochs on the
+    citation2 split's message edges: the API as users call it, its graph
+    pipeline and build on the host included."""
+    from gnn_tail_generalization_tpu_torch.baselines.api import gen_baseline_embs
     from gnn_tail_generalization_tpu_torch.utils.device import resolve_device
 
     dev = resolve_device(device)
     n, msg, _ = citation2(**split)
-    e = standard_pipeline(msg, n)
-    g = build_graph(e, n, with_dense=n <= 4096, with_plans=n > 4096).to(dev)
-    x = degree_bucketing(e, n, max_degree=n_hidden)
+    return Window(lambda: _timed(dev, 1, lambda: gen_baseline_embs(
+        msg, n, "DGI", hidden_dim=n_hidden, epochs=epochs, device=dev)), 1)
+
+
+@functools.lru_cache(maxsize=1)
+def bench_graph(n_node=BENCH_NODES, n_edge=BENCH_EDGES, n_hidden=BASELINE_HIDDEN) -> tuple:
+    """(host graph, its edges [2, E] in the forward CSR's order, degree
+    one-hot features of width ``n_hidden``) of ``chip_smoke.py``'s bench
+    graph, as its phase 9 (iii) feeds the GIN pretrainers."""
+    from gnn_tail_generalization_tpu_torch.baselines.api import degree_bucketing
+    from gnn_tail_generalization_tpu_torch.data.synthetic import fast_powerlaw_graph
+    from gnn_tail_generalization_tpu_torch.graph.core import (build_graph, edge_rows,
+                                                              standard_pipeline)
+
+    g = build_graph(standard_pipeline(fast_powerlaw_graph(n_node, n_edge, 0), n_node),
+                    n_node, with_dense=False)
+    e = np.stack([g.indices.numpy(), edge_rows(g.indptr, g.n_edge).numpy()])
+    return g, e, degree_bucketing(e, n_node, n_hidden)
+
+
+def gin_cell(variant: str, device="cuda", epochs=DGI_EPOCHS, n_hidden=BASELINE_HIDDEN,
+             **size) -> Window:
+    """``train_pretrain_gin`` (``variant`` "masking" or "contextpred", its
+    default 128 centres) for ``epochs`` epochs on ``bench_graph``."""
+    from gnn_tail_generalization_tpu_torch.baselines.pretrain_gin import train_pretrain_gin
+    from gnn_tail_generalization_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device(device)
+    g, _, x = bench_graph(n_hidden=n_hidden, **size)
 
     def run():
         stats = {}
-        train_dgi(g, x, n_hidden, epochs=epochs, device=dev, stats=stats)
+        train_pretrain_gin(g, x, variant, hidden_dim=n_hidden, epochs=epochs, device=dev,
+                           stats=stats)
         return statistics.median(stats["epoch_ms"]), np.array(stats["loss"])
     return Window(run, epochs)
+
+
+def struct_cell(device="cuda", n_hidden=BASELINE_HIDDEN, **size) -> Window:
+    """One ``StructFeatPretrain`` loss and backward on ``bench_graph`` and
+    its 30%-edge-masked copy, with ``chip_smoke.py`` phase 9 (iii)'s link
+    and centrality pairs."""
+    from gnn_tail_generalization_tpu_torch.baselines.structure_pretrain import (
+        StructFeatPretrain)
+    from gnn_tail_generalization_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device(device)
+    g, e, x = bench_graph(n_hidden=n_hidden, **size)
+    gm, *pairs = struct_pretrain_inputs(e, g.n_node)
+    model = StructFeatPretrain(n_hidden, n_hidden,
+                               generator=torch.Generator().manual_seed(0)).to(dev)
+    args = (g.to(dev), gm.to(dev), torch.as_tensor(x, device=dev),
+            *(torch.as_tensor(a, device=dev) for a in pairs))
+
+    def step():
+        model.zero_grad(set_to_none=True)
+        loss = model(*args)
+        loss.backward()
+        return loss.detach()
+    return Window(lambda: _timed(dev, 1, step), 1)
+
+
+@functools.lru_cache(maxsize=1)
+def scored_edges(n_node=BENCH_NODES, n_edge=BENCH_EDGES) -> np.ndarray:
+    """[M, 2] the bench graph's raw edges, the scored edges of
+    ``chip_smoke.py`` phase 13's edge LP."""
+    from gnn_tail_generalization_tpu_torch.data.synthetic import fast_powerlaw_graph
+
+    return np.ascontiguousarray(fast_powerlaw_graph(n_node, n_edge, 0).T)
+
+
+def edge_lp_cell(kind: str, device="cuda", emb_d=ELP_EMB_D, n_node=BENCH_NODES,
+                 n_edge=BENCH_EDGES) -> Window:
+    """One ``run_logit_lp`` (``kind`` "logit") or ``run_emb_lp`` ("emb")
+    call over ``scored_edges``: the edge graph built on the host at cap
+    ``ELP_CAP``, then ``ELP_PROPS`` propagations on the card, of random
+    logits or of random node embeddings of width ``emb_d``."""
+    from gnn_tail_generalization_tpu_torch.linkpred import edge_lp as elp
+    from gnn_tail_generalization_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device(device)
+    scored = scored_edges(n_node, n_edge)
+    m = len(scored)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    if kind == "logit":
+        logits = torch.randn(m, generator=gen, device=dev)
+
+        def call():
+            return elp.run_logit_lp(scored, logits, m // 2, 3 * m // 4,
+                                    num_propagations=ELP_PROPS, max_degree=ELP_CAP)
+    else:
+        h = torch.randn(n_node, emb_d, generator=gen, device=dev)
+
+        def call():
+            return elp.run_emb_lp(scored, h, num_propagations=ELP_PROPS, max_degree=ELP_CAP)
+    return Window(lambda: _timed(dev, 1, call), 1)
 
 
 def bench_cell(device="cuda", steps=BT.TIMED_STEPS, **size) -> Window:
@@ -442,14 +602,21 @@ def cells(epochs: int = EPOCHS) -> dict:
         trainer_cell, SLICE_ARGS + [f"--spmm_method={m}"] + flags, epochs)
         for loss, flags in (("", []), ("I2_GTL ", ["--exp_mode=I2_GTL", "--task=nodeC"]))
         for m in ("auto", "pallas_bf16")}
-    tricks = {name: functools.partial(trainer_cell, TRICK_BASE + TRICK_RUNS[name], epochs)
-              for name in PROFILED_TRICKS}
+    tricks = {name: functools.partial(trainer_cell, TRICK_BASE + flags, epochs)
+              for name, flags in TRICK_RUNS.items()}
     return {**teacher, "bench": bench_cell, "sharded S=1": sharded_cell,
             "semlp part1": functools.partial(semlp_cell, 1, epochs),
             "semlp part2": functools.partial(semlp_cell, 2, epochs),
             "replace": replace_cell, **tricks, "LP": lp_cell, "C&S": cs_cell,
             "link bench": functools.partial(link_cell, "bench"),
-            "link default": functools.partial(link_cell, "default"), "DGI": dgi_cell}
+            "link default": functools.partial(link_cell, "default"),
+            **{alg: functools.partial(baseline_cell, alg) for alg in ("DGI", "EGI", "VGAE")},
+            "DGI call": dgi_call_cell,
+            "GIN masking": functools.partial(gin_cell, "masking"),
+            "GIN contextpred": functools.partial(gin_cell, "contextpred"),
+            "struct pretrain": struct_cell,
+            "edge LP logit": functools.partial(edge_lp_cell, "logit"),
+            "edge LP emb": functools.partial(edge_lp_cell, "emb")}
 
 
 def finite(out) -> bool:
@@ -458,10 +625,54 @@ def finite(out) -> bool:
     return bool(np.isfinite(np.asarray(out)).all())
 
 
+def host_bound(s: dict) -> bool:
+    """Whether the cell's unprofiled window (``wall_ms``) took more than
+    ``HOST_BOUND`` times its device time."""
+    return s["wall_ms"] > HOST_BOUND * s["device_ms"]
+
+
+def host_function(file: str, line: int, name: str):
+    """``host_top``'s name of a function cProfile saw: "<path from the
+    package's parent>:<line>(<name>)" for Python functions of
+    ``HOST_PACKAGES``, the name for their C functions (cProfile files these
+    under "~"), else None."""
+    if file == "~":
+        return name if any(f"{p}." in name for p in HOST_PACKAGES) else None
+    parts = file.split(os.sep)
+    for i, part in enumerate(parts):  # the outermost package directory
+        if part in HOST_PACKAGES:
+            return f"{'/'.join(parts[i:])}:{line}({name})"
+    return None
+
+
+def host_profile(window: Window, dev, top: int = HOST_TOP) -> tuple:
+    """One run of ``window`` under ``cProfile``: (the ``top`` functions of
+    ``host_function`` by cumulative seconds, each {"function", "s",
+    "share"} with its share of the run's wall time; that wall time in ms)."""
+    prof = cProfile.Profile()
+    _sync(dev)
+    t0 = time.perf_counter()
+    prof.enable()
+    try:
+        window.run()
+        _sync(dev)
+    finally:
+        prof.disable()
+    wall_s = time.perf_counter() - t0
+    rows = []
+    for (file, line, name), (_, _, _, cum_s, _) in pstats.Stats(prof).stats.items():
+        label = host_function(file, line, name)
+        if label is not None:
+            rows.append({"function": label, "s": cum_s, "share": cum_s / wall_s})
+    rows.sort(key=lambda r: -r["s"])
+    return rows[:top], wall_s * 1e3
+
+
 def profile_cell(name: str, build, out_dir: str) -> dict:
-    """Builds the cell, warms it with one unprofiled run of its window, and
-    profiles a second run; the summary of its trace and the fields of the
-    module docstring."""
+    """Builds the cell, warms it with one unprofiled run of its window,
+    profiles a second run and times a third; a host-bound cell's window
+    runs a fourth time under ``host_profile``. The summary of its trace and
+    the fields of the module docstring."""
     from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
 
     w = build()
@@ -482,8 +693,13 @@ def profile_cell(name: str, build, out_dir: str) -> dict:
     trace = os.path.join(out_dir, f"trace_{re.sub(r'[^A-Za-z0-9]+', '_', name)}.json")
     prof.export_chrome_trace(trace)
     s = summarize(trace, w.steps)
-    s.update(steps=w.steps, step_ms=step_ms, kernel_launches=launches,
+    dev = torch.device("cuda")
+    wall_ms, _ = _timed(dev, 1, w.run)
+    s.update(steps=w.steps, step_ms=step_ms, wall_ms=wall_ms, kernel_launches=launches,
              spmm_bound_ms=spmm_bound_ms(calls) / w.steps if calls else None)
+    s["host_bound"] = host_bound(s)
+    if s["host_bound"]:
+        s["host_top"], s["host_wall_ms"] = host_profile(w, dev)
     return s
 
 
@@ -493,7 +709,8 @@ def print_cell(title: str, s: dict) -> None:
           f"{s['device_ms']:.3f} ({s['device_ms_per_step']:.4f} a step, "
           f"{s['launches_per_step']:.1f} kernels a step); loop span "
           f"{s['loop_span_ms']:.3f} ms, busy {s['loop_busy_ms']:.3f} ms, "
-          f"idle share {s['loop_idle_share']:.4f}")
+          f"idle share {s['loop_idle_share']:.4f}; window wall {s['wall_ms']:.3f} ms"
+          + (" (host-bound)" if s["host_bound"] else ""))
     for k, v in sorted(s["by_class_ms"].items(), key=lambda kv: -kv[1]):
         print(f"  {k:12s} {v:10.3f} ms  {100 * s['share'][k]:5.1f}%")
     bound = s["spmm_bound_ms"]
@@ -501,6 +718,10 @@ def print_cell(title: str, s: dict) -> None:
           + ("" if bound is None else f"; SpMM bound {bound:.4f} ms a step"))
     for name, ms, n, cls in s["top_kernels"]:
         print(f"    {ms:9.3f} ms {n:6d}x  {cls:11s} {name}")
+    if s["host_bound"]:
+        print(f"  host, cumulative, of a {s['host_wall_ms']:.3f} ms run under cProfile:")
+        for r in s["host_top"]:
+            print(f"    {r['s']:9.4f} s {100 * r['share']:5.1f}%  {r['function']}")
 
 
 def main(argv=None) -> int:

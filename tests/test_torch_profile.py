@@ -3,14 +3,18 @@
 The profiles themselves need a CUDA card (``python3 profile_step.py``).
 Here: the op class of kernel names taken from the card's traces, ``summarize``
 on a hand-written chrome trace, one step of every cell's workload at a small
-size with the SpMM calls it makes all recorded, and the exits without a card
+size with the SpMM calls it makes all recorded, the host-bound rule on
+hand-written summaries, the names ``host_top`` gives cProfile's functions,
+the host attribution of the small ``LP`` cell, and the exits without a card
 and on an unknown ``--cell``.
 """
 import json
+import os
 import types
 
 import numpy as np
 import pytest
+import torch
 
 import profile_step as P
 from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
@@ -25,8 +29,21 @@ CELL_SMALL = {
     "sharded S=1": dict(steps=1, **SMALL),
     "link bench": dict(steps=1, batch_size=512, n_feat=SMALL["n_feat"], **SPLIT_SMALL),
     "link default": dict(steps=1, batch_size=512, **SPLIT_SMALL),
-    "DGI": dict(epochs=1, n_hidden=SMALL["n_hidden"], **SPLIT_SMALL),
+    **{name: dict(epochs=1, n_hidden=SMALL["n_hidden"], **SPLIT_SMALL)
+       for name in ("DGI", "EGI", "VGAE", "DGI call")},
+    # the bench graph's cells: its raw edges at the small size
+    **{name: dict(epochs=1, n_hidden=SMALL["n_hidden"], n_node=SMALL["n_node"],
+                  n_edge=SMALL["n_edge"]) for name in ("GIN masking", "GIN contextpred")},
+    "struct pretrain": dict(n_hidden=SMALL["n_hidden"], n_node=SMALL["n_node"],
+                            n_edge=SMALL["n_edge"]),
+    **{name: dict(emb_d=16, n_node=SMALL["n_node"], n_edge=SMALL["n_edge"])
+       for name in ("edge LP logit", "edge LP emb")},
 }
+# the cells this profiler runs beyond the trainer, student, link and DGI
+# cells: every trick of chip_smoke.py's zoo and the other baselines' paths
+NEW_PATHS = ("BatchNorm", "PairNorm", "Jumping", "DropEdge", "LADIES", "FastGCN-bf16",
+             "EGI", "VGAE", "GIN masking", "GIN contextpred", "struct pretrain",
+             "edge LP logit", "edge LP emb", "DGI call")
 # above the dense-adjacency threshold (4,096 nodes): the graphs get CSRs and
 # schedules, so the SpMMs go through the kernels' wrappers
 PLANNED = dict(n_node=9000, n_feat=16, n_hidden=32, n_class=5, n_edge=40000)
@@ -88,6 +105,12 @@ KERNELS = [
      'sort/top-k'),  # link_default
     ('void at::native::bitonicSortKVInPlace<2, -1, 16, 16, float, long, at::native::GTOp<float, true>, unsigned int>(at::cuda::detail::TensorInfo<float, unsigned int>, unsigned int, unsigned int, unsigned int, at::cuda::detail::TensorInfo<long, unsigned int>, unsigned int, at::native::GTOp<float, true>)',
      'sort/top-k'),  # semlp_part2
+    ('void compute_cuda_kernel<long>(long const*, long const*, long*, long, long)',
+     'index'),  # DropEdge
+    ('void at::native::roll_cuda_kernel<float>(float const*, float*, long, long, long, long, long, long)',
+     'cast/copy'),  # GIN_contextpred
+    ('at::native::(anonymous namespace)::fill_reverse_indices_kernel(long*, int, at::cuda::detail::IntDivider<unsigned int>)',
+     'sort/top-k'),  # FastGCN_bf16
     ('void (anonymous namespace)::softmax_warp_forward<float, float, float, 6, true, false>(float*, float const*, int, int, int, bool const*, int, bool)',
      'softmax'),  # bench
     ('void (anonymous namespace)::softmax_warp_backward<float, float, float, 6, true, false>(float*, float const*, float const*, int, int, int, bool const*)',
@@ -197,6 +220,65 @@ def test_the_recorder_sees_every_spmm_of_a_window(name):
         for ip, ix, d, bf16 in calls)
     assert P.spmm_bound_ms(calls) == pytest.approx(want, rel=1e-12)
     assert {bf16 for *_, bf16 in calls} == {name == "bench"}
+
+
+def test_the_registry_holds_every_trick_and_every_path():
+    from chip_smoke import TRICK_RUNS
+
+    names = list(P.cells())
+    assert set(TRICK_RUNS) <= set(names) and set(NEW_PATHS) <= set(names)
+    assert len(names) == len(set(names)) == 30
+
+
+@pytest.mark.parametrize("wall_ms,device_ms,bound", [
+    (323.9637, 14.5276, True),    # a run_pure_lp call: host work around 50 propagations
+    (20.0001, 10.0, True),
+    (20.0, 10.0, False),          # exactly twice: not more than twice
+    (95.0, 91.9053, False),       # a link bench step
+    (5.0, 0.0, True),             # no device time at all
+])
+def test_host_bound_rule_on_hand_written_summaries(wall_ms, device_ms, bound):
+    assert P.host_bound({"wall_ms": wall_ms, "device_ms": device_ms}) is bound
+
+
+SITE = os.path.join(os.sep, "usr", "lib", "python3.12", "site-packages")
+
+
+@pytest.mark.parametrize("file,line,name,label", [
+    (os.path.join(SITE, "numpy", "lib", "_arraysetops_impl.py"), 138, "unique",
+     "numpy/lib/_arraysetops_impl.py:138(unique)"),
+    (os.path.join(SITE, "scipy", "sparse", "_base.py"), 560, "dot",
+     "scipy/sparse/_base.py:560(dot)"),
+    (os.path.join(os.sep, "src", "gnn_tail_generalization_tpu_torch", "propagation",
+                  "cs.py"), 74, "pre_step",
+     "gnn_tail_generalization_tpu_torch/propagation/cs.py:74(pre_step)"),
+    ("~", 0, "<method 'argsort' of 'numpy.ndarray' objects>",
+     "<method 'argsort' of 'numpy.ndarray' objects>"),
+    ("~", 0, "<built-in method numpy.concatenate>", "<built-in method numpy.concatenate>"),
+    ("~", 0, "<built-in method builtins.len>", None),
+    ("~", 0, "<built-in method torch.cat>", None),
+    (os.path.join(SITE, "torch", "nn", "modules", "module.py"), 1, "_call_impl", None),
+    (os.path.join(os.sep, "src", "profile_step.py"), 1, "run", None),
+], ids=["numpy", "scipy", "the port", "numpy method", "numpy builtin", "builtin", "torch C",
+        "torch", "the profiler"])
+def test_host_function_names_the_package_numpy_and_scipy(file, line, name, label):
+    assert P.host_function(file, line, name) == label
+
+
+def test_host_attribution_of_the_small_lp_cell():
+    """The small ``LP`` cell's window under cProfile: at most ``HOST_TOP``
+    functions, by cumulative seconds, among them the DAD adjacency's host
+    build, every share in [0, 1]."""
+    window = P.cells()["LP"](device="cpu", **NODE_SMALL)
+    window.run()
+    top, wall_ms = P.host_profile(window, torch.device("cpu"))
+    assert 0 < len(top) <= P.HOST_TOP and wall_ms > 0
+    assert [r["s"] for r in top] == sorted((r["s"] for r in top), reverse=True)
+    assert all(0 <= r["share"] <= 1 for r in top), top
+    assert any("(gen_normalized_adjs)" in r["function"] or "(build_graph)" in r["function"]
+               for r in top), [r["function"] for r in top]
+    assert any(r["function"].startswith("gnn_tail_generalization_tpu_torch/train/loops.py:")
+               and r["function"].endswith("(run_pure_lp)") for r in top)
 
 
 @pytest.mark.parametrize("argv", [["--cell", "GroupNorm"], ["--cell", "no such cell"]],
