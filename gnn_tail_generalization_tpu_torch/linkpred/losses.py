@@ -18,12 +18,17 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..utils import debug
+
 _LOG_EPS = math.log(1e-15)
 
 
 def _plus_eps(log_p: torch.Tensor) -> torch.Tensor:
-    """log(p + 1e-15) from log(p)."""
-    return torch.logaddexp(log_p, log_p.new_tensor(_LOG_EPS))
+    """log(p + 1e-15) from log(p). The constant's copy to the card waits
+    for the card's queue (``gnn.link.loss.read``)."""
+    with debug.host_read("gnn.link.loss.read"):
+        eps = log_p.new_tensor(_LOG_EPS)
+    return torch.logaddexp(log_p, eps)
 
 
 def _log_sig_eps(x: torch.Tensor) -> torch.Tensor:

@@ -5,12 +5,17 @@ Evaluator semantics, the reference's ``Link_prediction_model/utils.py:43-91``,
 and ``cal_recall``, ``utils.py:568-586``). Scores are tensors on any
 device; hits@K and MRR are computed there and read back once as a float.
 ``cal_recall`` is a numpy copy of the original, on host copies of the
-scores.
+scores. Each read back is a ``gnn.link.metric.read`` span, counted in
+``host_syncs``.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..utils import debug
+
+READ = "gnn.link.metric.read"
 
 
 def hits_at_k(pos_pred: torch.Tensor, neg_pred: torch.Tensor, k: int) -> float:
@@ -19,7 +24,8 @@ def hits_at_k(pos_pred: torch.Tensor, neg_pred: torch.Tensor, k: int) -> float:
     if neg_pred.shape[0] < k:
         return 1.0
     thresh = torch.topk(neg_pred, k).values[k - 1]
-    return float((pos_pred > thresh).float().mean())
+    with debug.host_read(READ):
+        return float((pos_pred > thresh).float().mean())
 
 
 def evaluate_hits(pos_val, neg_val, pos_test, neg_test,
@@ -38,7 +44,8 @@ def mrr(pos_pred: torch.Tensor, neg_pred: torch.Tensor) -> float:
     opt = (neg_pred > pos).sum(dim=1) + 1
     pess = (neg_pred >= pos).sum(dim=1) + 1
     rank = 0.5 * (opt + pess)
-    return float((1.0 / rank).mean())
+    with debug.host_read(READ):
+        return float((1.0 / rank).mean())
 
 
 def _group_negs(pos: torch.Tensor, neg: torch.Tensor) -> torch.Tensor:
@@ -62,7 +69,10 @@ def evaluate_mrr(pos_val, neg_val, pos_test, neg_test):
 
 
 def _host(a) -> np.ndarray:
-    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+    if not isinstance(a, torch.Tensor):
+        return np.asarray(a)
+    with debug.host_read(READ):
+        return a.detach().cpu().numpy()
 
 
 def cal_recall(pos_pred, neg_pred, topk=None) -> float:

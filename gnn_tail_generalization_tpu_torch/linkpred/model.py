@@ -50,6 +50,7 @@ from ..graph.core import (Graph, add_self_loops, build_graph, edge_rows,
 from ..parallel.comm import Comm
 from ..parallel.distgraph import (DistGraph, ShardedGraph, build_dist_graph, comm_of,
                                   dist_take_rows, sum_replicated_grads)
+from ..utils import debug
 from ..utils.device import resolve_device
 from . import losses as L
 from . import metrics as M
@@ -287,17 +288,21 @@ def make_train_step(cfg: LinkPredConfig, model: LinkPredModel,
     params = list(model.parameters())
 
     def step(const, pos_edge, neg_edge, generator, valid):
-        optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(const, pos_edge, neg_edge, generator, valid)
-        comm = comm_of(const["g"])
-        if comm is None:
-            loss.backward()
-        else:
-            (loss / comm.world_size).backward()
-            sum_replicated_grads(model, comm)
-        if cfg.grad_clip_norm >= 0:
-            clip_by_global_norm(params, cfg.grad_clip_norm)
-        optimizer.step()
+        with debug.span("gnn.link.step"):
+            optimizer.zero_grad(set_to_none=True)
+            with debug.span("gnn.link.step.forward"):
+                loss = loss_fn(const, pos_edge, neg_edge, generator, valid)
+            with debug.span("gnn.link.step.backward"):
+                comm = comm_of(const["g"])
+                if comm is None:
+                    loss.backward()
+                else:
+                    (loss / comm.world_size).backward()
+                    sum_replicated_grads(model, comm)
+            with debug.span("gnn.link.step.optimizer"):
+                if cfg.grad_clip_norm >= 0:
+                    clip_by_global_norm(params, cfg.grad_clip_norm)
+                optimizer.step()
         return loss.detach()
 
     return step
@@ -316,19 +321,20 @@ def make_epoch_fn(cfg: LinkPredConfig, model: LinkPredModel,
 
     def epoch(const, pos_all, keys, generator):
         dev = pos_all.device
-        perm = torch.randperm(pos_all.shape[0], generator=generator, device=dev)
         total = n_steps * bsz
-        if cfg.neg_sampler == "global":
-            neg_all = sampling.global_neg_sample(generator, keys, n_node,
-                                                 total, cfg.num_neg)
-        elif cfg.neg_sampler == "local":
-            pos_seq = pos_all[perm[torch.arange(total, device=dev) % n_draw]]
-            neg_all = sampling.local_neg_sample(generator, pos_seq, n_node,
-                                                cfg.num_neg)
-        else:  # global_perm: permuted copies within each step's batch
-            neg_all = sampling.global_perm_neg_sample(
-                generator, keys, n_node, total, cfg.num_neg, perm_within=bsz)
-        neg_all = neg_all.reshape(n_steps, bsz, cfg.num_neg, 2)
+        with debug.span("gnn.link.sample"):
+            perm = torch.randperm(pos_all.shape[0], generator=generator, device=dev)
+            if cfg.neg_sampler == "global":
+                neg_all = sampling.global_neg_sample(generator, keys, n_node,
+                                                     total, cfg.num_neg)
+            elif cfg.neg_sampler == "local":
+                pos_seq = pos_all[perm[torch.arange(total, device=dev) % n_draw]]
+                neg_all = sampling.local_neg_sample(generator, pos_seq, n_node,
+                                                    cfg.num_neg)
+            else:  # global_perm: permuted copies within each step's batch
+                neg_all = sampling.global_perm_neg_sample(
+                    generator, keys, n_node, total, cfg.num_neg, perm_within=bsz)
+            neg_all = neg_all.reshape(n_steps, bsz, cfg.num_neg, 2)
         losses = []
         for s in range(n_steps):
             idx = s * bsz + torch.arange(bsz, device=dev)
@@ -553,7 +559,8 @@ def train_linkpred(
                 losses = _host_loop_epoch(cfg, step, const, pos_all, keys, gen,
                                           n_node, n_pos, bsz, seed, epoch,
                                           max_steps_per_epoch)
-            total_loss = float(losses.sum())  # the epoch's one host read
+            with debug.host_read("gnn.link.read"):  # the epoch's one host read
+                total_loss = float(losses.sum())
             epoch_s.append(time.perf_counter() - t0)
             nb = losses.numel()
             epoch_loss.append(total_loss / max(nb, 1))
@@ -629,10 +636,11 @@ def predict_chunked(model: LinkPredModel, h: torch.Tensor, edges,
     numpy array or a tensor) in chunks of ``chunk`` pairs, so no [m, d]
     endpoint gather is materialised at once. ``g``: the graph ``h`` was
     encoded on (``take_rows``)."""
-    edges = torch.as_tensor(edges, device=h.device).long()
-    outs = [model.predict_pairs(take_rows(g, h, e[:, 0]), take_rows(g, h, e[:, 1]))
-            for e in torch.split(edges, chunk)]
-    return torch.cat(outs) if outs else h.new_zeros(0)
+    with debug.span("gnn.link.score"):
+        edges = torch.as_tensor(edges, device=h.device).long()
+        outs = [model.predict_pairs(take_rows(g, h, e[:, 0]), take_rows(g, h, e[:, 1]))
+                for e in torch.split(edges, chunk)]
+        return torch.cat(outs) if outs else h.new_zeros(0)
 
 
 def evaluate(cfg: LinkPredConfig, model: LinkPredModel, const,
@@ -641,7 +649,8 @@ def evaluate(cfg: LinkPredConfig, model: LinkPredModel, const,
     post-processing (208-239). Encodes ONCE, scores each split in chunks."""
     model.eval()
     with torch.no_grad():
-        h_eval = encode_all(model, const)
+        with debug.span("gnn.link.encode"):
+            h_eval = encode_all(model, const)
 
         def scores(edges):
             return predict_chunked(model, h_eval, edges, g=const["g"])
@@ -665,14 +674,15 @@ def evaluate(cfg: LinkPredConfig, model: LinkPredModel, const,
             neg_train = neg_val
 
     m = cfg.eval_metric
-    if m == "hits":
-        return M.evaluate_hits(pos_val, neg_val, pos_test, neg_test)
-    if m == "mrr":
-        return M.evaluate_mrr(pos_val, neg_val, pos_test, neg_test)
-    if "recall_my" in m:
-        topk = float(m.split("@")[1])
-        return M.evaluate_recall_my(pos_train, neg_train, pos_val, neg_val,
-                                    pos_test, neg_test, topk=topk)
+    with debug.span("gnn.link.metric"):
+        if m == "hits":
+            return M.evaluate_hits(pos_val, neg_val, pos_test, neg_test)
+        if m == "mrr":
+            return M.evaluate_mrr(pos_val, neg_val, pos_test, neg_test)
+        if "recall_my" in m:
+            topk = float(m.split("@")[1])
+            return M.evaluate_recall_my(pos_train, neg_train, pos_val, neg_val,
+                                        pos_test, neg_test, topk=topk)
     raise ValueError(m)
 
 

@@ -33,6 +33,7 @@ import torch
 
 from ..graph.core import Graph, edge_rows
 from ..parallel.distgraph import ShardedGraph
+from ..utils import debug
 from . import spmm_kernels
 from .sddmm import edge_dot
 
@@ -45,6 +46,9 @@ def round_bf16(t: torch.Tensor) -> torch.Tensor:
 
 
 def _spmm_impl(g: Graph, x: torch.Tensor, method: str) -> torch.Tensor:
+    """One aggregation on one device: every SpMM forward and transposed
+    backward comes through here (counted in ``spmm.calls``)."""
+    debug.count("spmm.calls")
     if method == "auto":
         method = "dense" if g.dense_adj is not None else "pallas"
     if method == "dense":

@@ -13,7 +13,9 @@ Two points keep it equal to the JAX op:
   ``torch.topk`` promises no order on ties. Rows where the K-th score is tied
   with a score outside the selection are re-selected by a stable sort, and
   the K selected are put in the JAX order (score descending, then index
-  ascending), so that the weighted sum adds them in the same order.
+  ascending), so that the weighted sum adds them in the same order. The
+  check for such rows reads one flag a call back to the host
+  (``gnn.replace.read``, counted in ``host_syncs``).
 - The scores are true f32 products: TF32 would change which neighbours are
   selected. The callers (``main``, ``chip_smoke.py``) turn TF32 off.
 
@@ -29,6 +31,7 @@ from typing import Optional
 import torch
 
 from ..parallel.comm import Comm
+from ..utils import debug
 
 
 def top_k_lowest_index(scores: torch.Tensor, k: int):
@@ -39,8 +42,11 @@ def top_k_lowest_index(scores: torch.Tensor, k: int):
     # rows whose K-th value also occurs outside the selection: the set of
     # indices torch picked among the tied ones is unspecified
     tied = (scores >= vals[:, -1:]).sum(dim=1) > k
-    if tied.any():
-        rows = tied.nonzero()[:, 0]
+    with debug.host_read("gnn.replace.read"):
+        any_tied = bool(tied.any())
+    if any_tied:
+        with debug.host_read("gnn.replace.read"):
+            rows = tied.nonzero()[:, 0]
         order = torch.sort(scores[rows], dim=1, descending=True, stable=True)[1]
         idx[rows] = order[:, :k]
         vals[rows] = scores[rows[:, None], idx[rows]]
@@ -66,19 +72,20 @@ def latent_neighbor_replace(le_guess: torch.Tensor, teacher_se: torch.Tensor,
     bf16 and keeps the products and sums in f32, as the JAX op's
     ``preferred_element_type=f32``; selection, softmax and the weighted sum
     stay f32."""
-    se = teacher_se.float()
-    se_t = se.T
-    if score_dtype is not None:
-        se_t = se_t.to(score_dtype).float()
-    out = torch.empty(le_guess.shape[0], se.shape[1], dtype=torch.float32,
-                      device=le_guess.device)
-    for start in range(0, le_guess.shape[0], row_chunk):
-        rows = le_guess[start:start + row_chunk].float()
+    with debug.span("gnn.replace"):
+        se = teacher_se.float()
+        se_t = se.T
         if score_dtype is not None:
-            rows = rows.to(score_dtype).float()
-        vals, idx = top_k_lowest_index(rows @ se_t, top_k)
-        attn = torch.softmax(vals, dim=-1)
-        out[start:start + row_chunk] = torch.einsum("bk,bkd->bd", attn, se[idx])
+            se_t = se_t.to(score_dtype).float()
+        out = torch.empty(le_guess.shape[0], se.shape[1], dtype=torch.float32,
+                          device=le_guess.device)
+        for start in range(0, le_guess.shape[0], row_chunk):
+            rows = le_guess[start:start + row_chunk].float()
+            if score_dtype is not None:
+                rows = rows.to(score_dtype).float()
+            vals, idx = top_k_lowest_index(rows @ se_t, top_k)
+            attn = torch.softmax(vals, dim=-1)
+            out[start:start + row_chunk] = torch.einsum("bk,bkd->bd", attn, se[idx])
     return out
 
 

@@ -43,7 +43,6 @@ on a sharded DAD adjacency.
 from __future__ import annotations
 
 import dataclasses
-import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Mapping, Optional, Tuple, Union
 
@@ -64,6 +63,7 @@ from ..parallel.distgraph import (DistGraph, ShardedGraph, build_dist_graph,
                                   shard_state_dict,
                                   slice_model_cols, sum_replicated_grads)
 from ..propagation import correlation as corr
+from ..utils import debug
 from ..utils.device import resolve_device
 from .evalutil import headtail_accuracies, masked_accuracy
 from .optim import make_optimizer
@@ -74,11 +74,16 @@ class TrainResult:
     columns: List[str]
     records: np.ndarray  # [epochs, len(columns)]
     state_dict: Dict[str, torch.Tensor]  # final parameters and buffers
-    step_ms: List[float]  # per epoch: forward, backward and Adam, synchronised
+    # per epoch: forward, backward and Adam, the ``step`` span's time: on
+    # CUDA its two events (device time, idle inside included), read after
+    # the call's last records read; elsewhere the host clock
+    step_ms: List[float]
     # the teacher's best-by-acc_test parameters when training for SEMLP,
     # else the final ones
     best_state_dict: Optional[Dict[str, torch.Tensor]] = None
-    eval_ms: List[float] = field(default_factory=list)  # part 2: head/tail/iso
+    # part 2: the head/tail/iso forwards, the ``eval.subsets`` span's time,
+    # taken as ``step_ms`` is
+    eval_ms: List[float] = field(default_factory=list)
     extra: Dict[str, Any] = field(default_factory=dict)  # SEMLP: earlier phases
 
     def last(self, col: str) -> float:
@@ -204,11 +209,6 @@ def make_take_rows(g: Optional[DistGraph]):
     return take
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def _teacher_model(cfg: Config, seed: int, init_state: Optional[Mapping[str, Any]],
                    g: Optional[DistGraph]) -> TeacherGNN:
     """The teacher, from ``seed`` or ``init_state``. On a rank of a
@@ -261,23 +261,26 @@ def teacher_step_grads(cfg: Config, model: TeacherGNN, g: Union[Graph, DistGraph
     ``n_train``: the global train count of a sharded run, all-reduced here
     when not given. Returns the loss (the rank's part) and the MRR or
     None."""
-    common, classi, se_reg_all, _ = model(g, x, generator=generator,
-                                          graph_generator=graph_generator, g_last=g_last)
-    l_struct = linkp = None
-    if edgewise is not None:
-        # the full (unmasked) embedding (trainer:418)
-        l_struct, linkp = edgewise(common)
-    comm = g.comm if isinstance(g, ShardedGraph) else None
-    n_shards = 1
-    if comm is not None:
-        n_shards = comm.world_size
-        if n_train is None:
-            n_train = comm.all_reduce_sum_(train_mask.float().sum())
-    loss = teacher_loss(cfg, classi, se_reg_all, y, train_mask, l_struct,
-                        n_train=n_train, n_shards=n_shards)
-    loss.backward()
-    if comm is not None:
-        sum_replicated_grads(model, comm)
+    with debug.span("gnn.teacher.step.forward"):
+        common, classi, se_reg_all, _ = model(g, x, generator=generator,
+                                              graph_generator=graph_generator,
+                                              g_last=g_last)
+        l_struct = linkp = None
+        if edgewise is not None:
+            # the full (unmasked) embedding (trainer:418)
+            l_struct, linkp = edgewise(common)
+        comm = g.comm if isinstance(g, ShardedGraph) else None
+        n_shards = 1
+        if comm is not None:
+            n_shards = comm.world_size
+            if n_train is None:
+                n_train = comm.all_reduce_sum_(train_mask.float().sum())
+        loss = teacher_loss(cfg, classi, se_reg_all, y, train_mask, l_struct,
+                            n_train=n_train, n_shards=n_shards)
+    with debug.span("gnn.teacher.step.backward"):
+        loss.backward()
+        if comm is not None:
+            sum_replicated_grads(model, comm)
     return loss, linkp
 
 
@@ -300,8 +303,9 @@ def train_teacher(
     for the eval forward; their buffers travel in the state_dicts.
     ``init_state``: starting parameters and buffers (a state_dict, e.g.
     from utils/convert.params_from_jax) instead of the random init.
-    ``step_ms`` of the result holds each epoch's train-step time on the
-    host clock. Under the edgewise loss (exp_mode=I2_GTL) the pairs are
+    ``step_ms`` of the result holds each epoch's train-step time
+    (``TrainResult``); an epoch's one blocking read is its records' copy to
+    the host. Under the edgewise loss (exp_mode=I2_GTL) the pairs are
     drawn from a generator seeded ``seed + 5``, and the records gain the
     MRR columns ``linkp_train`` (the train-mode forward's) and
     ``linkp_test`` (the eval forward's). ``save_dir``: the final state is
@@ -320,70 +324,70 @@ def train_teacher(
     directories beside the one-device paths (``train/checkpoint.py``; on a
     2-D mesh the graph axis's, the columns gathered first)."""
     epochs = cfg.epochs if epochs is None else epochs
-    dist_g = _dist_graph_of(data)
-    comm = None if dist_g is None else dist_g.comm
-    device = _rank_device(device, dist_g)
+    with debug.span("gnn.teacher.setup"):
+        dist_g = _dist_graph_of(data)
+        comm = None if dist_g is None else dist_g.comm
+        device = _rank_device(device, dist_g)
+        with debug.span("gnn.teacher.setup.model"):
+            model = _teacher_model(cfg, seed, init_state, dist_g).to(device)
+        # dropout masks differ between the ranks' rows, as one stream over
+        # all rows would make them
+        drop_gen = torch.Generator(device=device).manual_seed(
+            seed + (comm.shard << 32 if comm is not None else 0))
+        # graph-dropout masks get a stream of their own, drawn in train mode
+        graph_gen = torch.Generator(device=device).manual_seed(seed + 4)
+        opt = make_optimizer(cfg, model.parameters())
+        with debug.span("gnn.teacher.setup.inputs"):
+            g = data.graph.to(device)
+            ew_fn = None
+            if cfg.has_loss_component_edgewise:
+                from .edgewise import build_edgewise_plan, make_edgewise_loss_fn
 
-    model = _teacher_model(cfg, seed, init_state, dist_g).to(device)
-    # dropout masks differ between the ranks' rows, as one stream over all
-    # rows would make them
-    drop_gen = torch.Generator(device=device).manual_seed(
-        seed + (comm.shard << 32 if comm is not None else 0))
-    # graph-dropout masks get a stream of their own, drawn in train mode only
-    graph_gen = torch.Generator(device=device).manual_seed(seed + 4)
-    opt = make_optimizer(cfg, model.parameters())
-    g = data.graph.to(device)
-    ew_fn = None
-    if cfg.has_loss_component_edgewise:
-        from .edgewise import build_edgewise_plan, make_edgewise_loss_fn
+                ew_fn = make_edgewise_loss_fn(build_edgewise_plan(cfg, data), device,
+                                              dist_graph=None if comm is None else g)
+                pair_gen = torch.Generator(device=device).manual_seed(seed + 5)
 
-        ew_fn = make_edgewise_loss_fn(build_edgewise_plan(cfg, data), device,
-                                      dist_graph=None if comm is None else g)
-        pair_gen = torch.Generator(device=device).manual_seed(seed + 5)
+            g_last = final_agg_view(cfg, data)
+            if g_last is not None:
+                g_last = g_last.to(device)
+            x = torch.as_tensor(data.x).to(device)
+            y = torch.as_tensor(data.y).to(device)
+            train_mask = torch.as_tensor(data.train_mask).to(device)
+            test_mask = torch.as_tensor(data.test_mask).to(device)
+            s = data.splits
+            want_ht = cfg.want_headtail and s is not None
+            if want_ht:
+                large = torch.as_tensor(s.large_deg_mask).to(device)
+                small = torch.as_tensor(s.small_deg_mask).to(device)
+                zero = (None if s.zero_deg_mask is None
+                        else torch.as_tensor(s.zero_deg_mask).to(device))
 
-    g_last = final_agg_view(cfg, data)
-    if g_last is not None:
-        g_last = g_last.to(device)
-    x = torch.as_tensor(data.x).to(device)
-    y = torch.as_tensor(data.y).to(device)
-    train_mask = torch.as_tensor(data.train_mask).to(device)
-    test_mask = torch.as_tensor(data.test_mask).to(device)
-    s = data.splits
-    want_ht = cfg.want_headtail and s is not None
-    if want_ht:
-        large = torch.as_tensor(s.large_deg_mask).to(device)
-        small = torch.as_tensor(s.small_deg_mask).to(device)
-        zero = (None if s.zero_deg_mask is None
-                else torch.as_tensor(s.zero_deg_mask).to(device))
-
-    cols = ["loss_train", "acc_train", "acc_test"]
-    if want_ht:
-        cols += ["head", "tail"] + (["iso"] if zero is not None else [])
-    if ew_fn is not None:
-        cols += ["linkp_train", "linkp_test"]
-    records = np.zeros((epochs, len(cols)), np.float64)
-    step_ms: List[float] = []
-    keep_best = "SEMLP" in cfg.train_which
-    acc_i = cols.index("acc_test")
-    best_acc, best_state = -1.0, None
-    n_train = None if comm is None else comm.all_reduce_sum_(train_mask.float().sum())
-    edgewise = None if ew_fn is None else (lambda h: ew_fn(h, pair_gen, "train"))
+        cols = ["loss_train", "acc_train", "acc_test"]
+        if want_ht:
+            cols += ["head", "tail"] + (["iso"] if zero is not None else [])
+        if ew_fn is not None:
+            cols += ["linkp_train", "linkp_test"]
+        records = np.zeros((epochs, len(cols)), np.float64)
+        step_laps = debug.Laps(device)
+        keep_best = "SEMLP" in cfg.train_which
+        acc_i = cols.index("acc_test")
+        best_acc, best_state = -1.0, None
+        n_train = None if comm is None else comm.all_reduce_sum_(train_mask.float().sum())
+        edgewise = None if ew_fn is None else (lambda h: ew_fn(h, pair_gen, "train"))
 
     for epoch in range(epochs):
-        _sync(device)
-        t0 = time.perf_counter()
-        model.train()
-        opt.zero_grad(set_to_none=True)
-        loss, linkp_train = teacher_step_grads(
-            cfg, model, g, x, y, train_mask, n_train=n_train, g_last=g_last,
-            generator=drop_gen, graph_generator=graph_gen, edgewise=edgewise)
-        opt.step()
-        _sync(device)
-        step_ms.append((time.perf_counter() - t0) * 1e3)
+        with debug.span("gnn.teacher.step", step_laps):
+            model.train()
+            opt.zero_grad(set_to_none=True)
+            loss, linkp_train = teacher_step_grads(
+                cfg, model, g, x, y, train_mask, n_train=n_train, g_last=g_last,
+                generator=drop_gen, graph_generator=graph_gen, edgewise=edgewise)
+            with debug.span("gnn.teacher.step.optimizer"):
+                opt.step()
 
         # eval-mode full forward (run_testSet)
         model.eval()
-        with torch.no_grad():
+        with torch.no_grad(), debug.span("gnn.teacher.eval"):
             common, classi, _, _ = model(g, x)
             loss_train = loss.detach().clone()
             if comm is not None:
@@ -399,9 +403,9 @@ def train_teacher(
             if ew_fn is not None:
                 metrics["linkp_train"] = linkp_train.detach()
                 metrics["linkp_test"] = ew_fn(common, pair_gen, "test")[1]
-            # one device->host copy per epoch
-            records[epoch] = torch.stack(
-                [metrics[c].float() for c in cols]).cpu().numpy()
+            stacked = torch.stack([metrics[c].float() for c in cols])
+        with debug.host_read("gnn.teacher.read"):  # the epoch's one read
+            records[epoch] = stacked.cpu().numpy()
         if records[epoch, acc_i] > best_acc:
             best_acc = records[epoch, acc_i]
             if keep_best:  # state_dict() holds live tensors that Adam updates
@@ -435,7 +439,7 @@ def train_teacher(
         columns=cols,
         records=records,
         state_dict=final,
-        step_ms=step_ms,
+        step_ms=step_laps.ms(),
         best_state_dict=best_state if best_state is not None else final,
     )
 
@@ -505,49 +509,52 @@ def train_semlp_part1(
     ``teacher_se`` is the rank's rows (``collect_teacher_se``), the batches
     come through ``make_take_rows`` and rank 0 logs."""
     epochs = cfg.epochs if epochs is None else epochs
-    dg = _dist_graph_of(data)
-    device = _rank_device(device, dg)
-    take = make_take_rows(dg)
-    se = teacher_se.to(device)
-    x = torch.as_tensor(data.x).to(device)
-    train_idx = torch.as_tensor(data.train_idx).to(device)
-    test_idx = torch.as_tensor(data.test_idx).to(device)
-    bsz = min(cfg.batch_size, len(data.train_idx))  # MLP_model:61-63
+    with debug.span("gnn.part1.setup"):
+        dg = _dist_graph_of(data)
+        device = _rank_device(device, dg)
+        take = make_take_rows(dg)
+        se = teacher_se.to(device)
+        x = torch.as_tensor(data.x).to(device)
+        train_idx = torch.as_tensor(data.train_idx).to(device)
+        test_idx = torch.as_tensor(data.test_idx).to(device)
+        bsz = min(cfg.batch_size, len(data.train_idx))  # MLP_model:61-63
 
-    model = SEMLPPart1(cfg, se_dim=se.shape[1],
-                       generator=torch.Generator().manual_seed(seed + 1))
-    model.to(device)
-    gen = torch.Generator(device=device).manual_seed(seed + 1)
-    opt = make_optimizer(cfg, model.parameters())
+        model = SEMLPPart1(cfg, se_dim=se.shape[1],
+                           generator=torch.Generator().manual_seed(seed + 1))
+        model.to(device)
+        gen = torch.Generator(device=device).manual_seed(seed + 1)
+        opt = make_optimizer(cfg, model.parameters())
 
-    cols = ["loss_train", "loss_test"]
-    records = np.zeros((epochs, len(cols)), np.float64)
-    step_ms: List[float] = []
+        cols = ["loss_train", "loss_test"]
+        records = np.zeros((epochs, len(cols)), np.float64)
+        step_laps = debug.Laps(device)
     for epoch in range(epochs):
-        _sync(device)
-        t0 = time.perf_counter()
-        model.train()
-        opt.zero_grad(set_to_none=True)
-        bidx = _sample(train_idx, bsz, gen)
-        loss = F.mse_loss(model(take(x, bidx), generator=gen), take(se, bidx))
-        loss.backward()
-        opt.step()
-        _sync(device)
-        step_ms.append((time.perf_counter() - t0) * 1e3)
+        with debug.span("gnn.part1.step", step_laps):
+            model.train()
+            opt.zero_grad(set_to_none=True)
+            with debug.span("gnn.part1.step.forward"):
+                bidx = _sample(train_idx, bsz, gen)
+                loss = F.mse_loss(model(take(x, bidx), generator=gen), take(se, bidx))
+            with debug.span("gnn.part1.step.backward"):
+                loss.backward()
+            with debug.span("gnn.part1.step.optimizer"):
+                opt.step()
 
         model.eval()
-        with torch.no_grad():
+        with torch.no_grad(), debug.span("gnn.part1.eval"):
             tidx = _sample(test_idx, bsz, gen)
             err = (model(take(x, tidx)) - take(se, tidx)) ** 2
             loss_test = err.sum() / max(err.numel(), 1)  # 0 over no nodes
-            records[epoch] = torch.stack([loss.detach(), loss_test]).cpu().numpy()
+            stacked = torch.stack([loss.detach(), loss_test])
+        with debug.host_read("gnn.part1.read"):
+            records[epoch] = stacked.cpu().numpy()
         if log_here(dg, log_every, epoch):
             print(f"p1 Ep{epoch:03d} train/test mse "
                   f"{records[epoch, 0]:.4f}/{records[epoch, 1]:.4f}")
     return TrainResult(
         columns=cols, records=records,
         state_dict={k: v.detach() for k, v in model.state_dict().items()},
-        step_ms=step_ms)
+        step_ms=step_laps.ms())
 
 
 # ---------------------------------------------------------------------------
@@ -608,134 +615,134 @@ def train_semlp_part2(
     ``teacher_se``, GraphMLP's adjacency power is over the global graph,
     and rank 0 logs."""
     epochs = cfg.epochs if epochs is None else epochs
-    dg = _dist_graph_of(data)
-    device = _rank_device(device, dg)
-    take = make_take_rows(dg)
-    x = torch.as_tensor(data.x).to(device)
-    y = torch.as_tensor(data.y).to(device)
-    train_idx = torch.as_tensor(data.train_idx).to(device)
-    test_idx = torch.as_tensor(data.test_idx).to(device)
-    train_mask = torch.as_tensor(data.train_mask).to(device)
-    bsz = min(cfg.batch_size, len(data.train_idx))
+    with debug.span("gnn.student.setup"):
+        dg = _dist_graph_of(data)
+        device = _rank_device(device, dg)
+        take = make_take_rows(dg)
+        x = torch.as_tensor(data.x).to(device)
+        y = torch.as_tensor(data.y).to(device)
+        train_idx = torch.as_tensor(data.train_idx).to(device)
+        test_idx = torch.as_tensor(data.test_idx).to(device)
+        train_mask = torch.as_tensor(data.train_mask).to(device)
+        bsz = min(cfg.batch_size, len(data.train_idx))
 
-    is_graphmlp = cfg.train_which == "GraphMLP"
-    downgraded = cfg.SEMLP__downgrade_to_MLP or cfg.train_which in (
-        "StudentBaseMLP", "GraphMLP")
-    se = part1 = None
-    if not downgraded:
-        if teacher_se is None or part1_result is None:
-            raise ValueError("SEMLP part 2 needs the teacher's SE table and "
-                             "part 1's result")
-        se = teacher_se.to(device)
-        with torch.device("meta"):
-            part1 = SEMLPPart1(cfg, se_dim=se.shape[1])
-        part1 = _on_device(part1, part1_result.state_dict, device)
+        is_graphmlp = cfg.train_which == "GraphMLP"
+        downgraded = cfg.SEMLP__downgrade_to_MLP or cfg.train_which in (
+            "StudentBaseMLP", "GraphMLP")
+        se = part1 = None
+        if not downgraded:
+            if teacher_se is None or part1_result is None:
+                raise ValueError("SEMLP part 2 needs the teacher's SE table and "
+                                 "part 1's result")
+            se = teacher_se.to(device)
+            with torch.device("meta"):
+                part1 = SEMLPPart1(cfg, se_dim=se.shape[1])
+            part1 = _on_device(part1, part1_result.state_dict, device)
 
-    adj_dense = adj_sparse = None
-    if is_graphmlp:
-        if _n_global(data) <= 8192:
-            adj_dense = torch.from_numpy(
-                _dense_adj_pow(data, cfg.graphMLP_r)).to(device)
-        else:
-            # dense [N, N] is out of reach at scale (114 GB at arxiv): crop
-            # [B, B] blocks of the sparse power on the host per step
-            adj_sparse = _sparse_adj_pow(data, cfg.graphMLP_r)
-
-    replace_fn = None
-    if dg is not None and se is not None:
-        def replace_fn(le_guess, se_local, top_k):
-            return dist_latent_replace(dg, le_guess, se_local, top_k, dg.n_node,
-                                       dg.rows_per_shard)
-    init_gen = torch.Generator().manual_seed(seed + 2)
-    model = (GraphMLP(cfg, generator=init_gen) if is_graphmlp else
-             SEMLPPart2(cfg, se_dim=0 if se is None else se.shape[1],
-                        generator=init_gen, replace_fn=replace_fn))
-    model.to(device)
-    gen = torch.Generator(device=device).manual_seed(seed + 2)
-    opt = make_optimizer(cfg, model.parameters())
-
-    def forward(idx: torch.Tensor, train: bool):
-        """(logits of the rows ``idx``, the GraphMLP NContrast term or
-        None). The NContrast term enters the train loss only
-        (trainer:156-158)."""
-        model.train(train)
-        g = gen if train else None
-        xb = take(x, idx)
+        adj_dense = adj_sparse = None
         if is_graphmlp:
-            logits, z = model(xb, generator=g)
-            if not train:
-                return logits, None
-            if adj_dense is not None:
-                crop = adj_dense[idx][:, idx]
+            if _n_global(data) <= 8192:
+                adj_dense = torch.from_numpy(
+                    _dense_adj_pow(data, cfg.graphMLP_r)).to(device)
             else:
-                crop = torch.from_numpy(
-                    adj_pow_crop(adj_sparse, idx.cpu().numpy())).to(device)
-            return logits, neighbor_contrastive_loss(
-                z, crop, cfg.graphMLP_tau) * cfg.graphMLP_reg
-        p1 = None
-        if part1 is not None:
-            # part 1 runs in train mode during part-2 training (module-level
-            # .train(), trainer:148-152); part 2 detaches its output
-            part1.train(train)
-            with torch.no_grad():
-                p1 = part1(xb, generator=g)
-        return model(xb, p1, se, generator=g), None
+                # dense [N, N] is out of reach at scale (114 GB at arxiv): crop
+                # [B, B] blocks of the sparse power on the host per step
+                adj_sparse = _sparse_adj_pow(data, cfg.graphMLP_r)
 
-    def subset_test_acc(idx: torch.Tensor) -> torch.Tensor:
-        """Forward on the subset, accuracy over its non-train nodes
-        (trainer:173-187, eval_headtail__traintest_v2)."""
-        logits, _ = forward(idx, train=False)
-        m = ~take(train_mask, idx)
-        correct = ((logits.argmax(dim=1) == take(y, idx)) & m).sum()
-        return correct / m.sum().clamp(min=1) * 100.0
+        replace_fn = None
+        if dg is not None and se is not None:
+            def replace_fn(le_guess, se_local, top_k):
+                return dist_latent_replace(dg, le_guess, se_local, top_k, dg.n_node,
+                                           dg.rows_per_shard)
+        init_gen = torch.Generator().manual_seed(seed + 2)
+        model = (GraphMLP(cfg, generator=init_gen) if is_graphmlp else
+                 SEMLPPart2(cfg, se_dim=0 if se is None else se.shape[1],
+                            generator=init_gen, replace_fn=replace_fn))
+        model.to(device)
+        gen = torch.Generator(device=device).manual_seed(seed + 2)
+        opt = make_optimizer(cfg, model.parameters())
 
-    s = data.splits
-    want_ht = cfg.want_headtail and s is not None
-    subsets = {}
-    if want_ht:
-        subsets = {"head": s.large_deg_idx, "tail": s.small_deg_idx}
-        if s.zero_deg_idx is not None:
-            subsets["iso"] = s.zero_deg_idx
-        subsets = {k: torch.as_tensor(v).to(device) for k, v in subsets.items()}
-    cols = ["loss_train", "acc_test"] + list(subsets)
-    records = np.zeros((epochs, len(cols)), np.float64)
-    step_ms: List[float] = []
-    eval_ms: List[float] = []
+        def forward(idx: torch.Tensor, train: bool):
+            """(logits of the rows ``idx``, the GraphMLP NContrast term or
+            None). The NContrast term enters the train loss only
+            (trainer:156-158)."""
+            model.train(train)
+            g = gen if train else None
+            xb = take(x, idx)
+            if is_graphmlp:
+                logits, z = model(xb, generator=g)
+                if not train:
+                    return logits, None
+                if adj_dense is not None:
+                    crop = adj_dense[idx][:, idx]
+                else:
+                    with debug.host_read("gnn.student.step.forward.read"):
+                        idx_host = idx.cpu().numpy()
+                    crop = torch.from_numpy(adj_pow_crop(adj_sparse, idx_host)).to(device)
+                return logits, neighbor_contrastive_loss(
+                    z, crop, cfg.graphMLP_tau) * cfg.graphMLP_reg
+            p1 = None
+            if part1 is not None:
+                # part 1 runs in train mode during part-2 training (module-level
+                # .train(), trainer:148-152); part 2 detaches its output
+                part1.train(train)
+                with torch.no_grad():
+                    p1 = part1(xb, generator=g)
+            return model(xb, p1, se, generator=g), None
+
+        def subset_test_acc(idx: torch.Tensor) -> torch.Tensor:
+            """Forward on the subset, accuracy over its non-train nodes
+            (trainer:173-187, eval_headtail__traintest_v2)."""
+            logits, _ = forward(idx, train=False)
+            m = ~take(train_mask, idx)
+            correct = ((logits.argmax(dim=1) == take(y, idx)) & m).sum()
+            return correct / m.sum().clamp(min=1) * 100.0
+
+        s = data.splits
+        want_ht = cfg.want_headtail and s is not None
+        subsets = {}
+        if want_ht:
+            subsets = {"head": s.large_deg_idx, "tail": s.small_deg_idx}
+            if s.zero_deg_idx is not None:
+                subsets["iso"] = s.zero_deg_idx
+            subsets = {k: torch.as_tensor(v).to(device) for k, v in subsets.items()}
+        cols = ["loss_train", "acc_test"] + list(subsets)
+        records = np.zeros((epochs, len(cols)), np.float64)
+        step_laps, eval_laps = debug.Laps(device), debug.Laps(device)
 
     for epoch in range(epochs):
-        _sync(device)
-        t0 = time.perf_counter()
-        opt.zero_grad(set_to_none=True)
-        bidx = _sample(train_idx, bsz, gen)
-        logits, aux = forward(bidx, train=True)
-        loss = F.cross_entropy(logits, take(y, bidx))
-        if aux is not None:
-            loss = loss + aux
-        loss.backward()
-        opt.step()
-        _sync(device)
-        step_ms.append((time.perf_counter() - t0) * 1e3)
+        with debug.span("gnn.student.step", step_laps):
+            opt.zero_grad(set_to_none=True)
+            with debug.span("gnn.student.step.forward"):
+                bidx = _sample(train_idx, bsz, gen)
+                logits, aux = forward(bidx, train=True)
+                loss = F.cross_entropy(logits, take(y, bidx))
+                if aux is not None:
+                    loss = loss + aux
+            with debug.span("gnn.student.step.backward"):
+                loss.backward()
+            with debug.span("gnn.student.step.optimizer"):
+                opt.step()
 
-        with torch.no_grad():
-            tidx = _sample(test_idx, bsz, gen)
-            logits_t, _ = forward(tidx, train=False)
-            metrics = {"loss_train": loss.detach(),
-                       "acc_test": masked_accuracy(logits_t, take(y, tidx)) * 100.0}
-            _sync(device)
-            t0 = time.perf_counter()
-            for name, idx in subsets.items():
-                metrics[name] = subset_test_acc(idx)
-            _sync(device)
-            eval_ms.append((time.perf_counter() - t0) * 1e3)
-            records[epoch] = torch.stack(
-                [metrics[c].float() for c in cols]).cpu().numpy()
+        with torch.no_grad(), debug.span("gnn.student.eval"):
+            with debug.span("gnn.student.eval.batch"):
+                tidx = _sample(test_idx, bsz, gen)
+                logits_t, _ = forward(tidx, train=False)
+                metrics = {"loss_train": loss.detach(),
+                           "acc_test": masked_accuracy(logits_t, take(y, tidx)) * 100.0}
+            with debug.span("gnn.student.eval.subsets", eval_laps):
+                for name, idx in subsets.items():
+                    metrics[name] = subset_test_acc(idx)
+            stacked = torch.stack([metrics[c].float() for c in cols])
+        with debug.host_read("gnn.student.read"):
+            records[epoch] = stacked.cpu().numpy()
         if log_here(dg, log_every, epoch):
             print(f"p2 Ep{epoch:03d} " + " ".join(
                 f"{c}={records[epoch, i]:.2f}" for i, c in enumerate(cols)))
     return TrainResult(
         columns=cols, records=records,
         state_dict={k: v.detach() for k, v in model.state_dict().items()},
-        step_ms=step_ms, eval_ms=eval_ms)
+        step_ms=step_laps.ms(), eval_ms=eval_laps.ms())
 
 
 def run_pure_lp(cfg: Config, data: PreparedData, alpha: float = 0.5,
