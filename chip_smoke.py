@@ -40,10 +40,17 @@ Phases (any failure exits non-zero; nothing is caught):
    part 1, part 2), 3 epochs a phase: finite records with the columns
    ``loss_train, acc_test, head, tail, iso``, and the f32 kernel launched
    for exactly the teacher's steps plus the SE-table forward, the bf16
-   kernel and the plain version never; (ii) ``latent_neighbor_replace`` on
+   kernel and the plain version never, and the top-K kernel once a row
+   chunk of each replacement; (ii) ``latent_neighbor_replace`` on
    the card against a float64 CPU evaluation of 512 rows of that run's own
    queries and SE table (the same selected neighbours, output within 1e-5
-   relative), and its time at B = 65,536 rows, the real arxiv batch;
+   relative), and its time at B = 65,536 rows, the real arxiv batch; the
+   top-K kernel (``csrc/topk_select.cu``) against its plain version, values
+   and indices bit for bit, on one [8192, 169343] score chunk of that run
+   (the kernel's, the plain version's and ``torch.topk``'s ms, the bound and
+   the share) and on ``topk_cases`` (K in 1, 2, 3, 8, 32, odd widths and
+   unaligned rows, exact ties across the K-th place, -inf columns, the
+   sharded merge's narrow shape, +-0.0 and NaN);
    (iii) StudentBaseMLP at the arxiv shape and GraphMLP on the Cora
    stand-in (dense A^r), 3 epochs each, finite, with no SpMM launch;
    (iv) the step and eval times of each phase;
@@ -161,7 +168,9 @@ Phases (any failure exits non-zero; nothing is caught):
    accuracies equal under ``auto`` and within ``DIST_BF16_FLIPS`` nodes
    under ``pallas_bf16``; (i) ``dist_latent_replace`` at B = 65,536 against
    the run's [169343, 512] SE table, gathered, held to the one-device op
-   (1e-5 relative a row, or a tie at the K-th place), and its ms a call;
+   (1e-5 relative a row, or a tie at the K-th place), its ms a call, and
+   one call recorded: a top-K launch a row chunk plus the merge's, and no
+   read back to the host;
    (iii) a sharded LP run (50 propagations) and the C&S stage pair on
    sharded DA / AD adjacencies, kernels against ``plain_kernels()`` (1e-5);
    (iv) the bench-shape graph with citation2's widths (128 features, hidden
@@ -675,13 +684,125 @@ def check_replace(cfg, pd, res, card_name) -> dict:
         mm_ms = median_ms(lambda: chunk @ se.T, reps=5, warmup=1)
         scores = chunk @ se.T
         sel_ms = median_ms(lambda: top_k_lowest_index(scores, k), reps=5, warmup=1)
+        log(f"  one {tuple(chunk.shape)} chunk: score matmul {mm_ms:.3f} ms "
+            f"({tflop * chunk.shape[0] / REPLACE_BATCH / mm_ms * 1e3:.1f} "
+            f"TFLOP/s), top-K selection "
+            f"{sel_ms:.3f} ms [{card_name}]")
+        kernel = check_topk_kernel(scores, k, card_name)
     del scores
-    log(f"  one {tuple(chunk.shape)} chunk: score matmul {mm_ms:.3f} ms "
-        f"({tflop * chunk.shape[0] / REPLACE_BATCH / mm_ms * 1e3:.1f} "
-        f"TFLOP/s), top-K selection "
-        f"{sel_ms:.3f} ms [{card_name}]")
+    torch.cuda.empty_cache()
     return {"rows": REPLACE_ROWS, "rel_err": rel_err, "batch": REPLACE_BATCH,
-            "ms": ms, "chunk_matmul_ms": mm_ms, "chunk_select_ms": sel_ms}
+            "ms": ms, "chunk_matmul_ms": mm_ms, "chunk_select_ms": sel_ms,
+            "topk_kernel": kernel}
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def topk_cases(chunk: torch.Tensor, gen: torch.Generator):
+    """(name, scores, Ks) of the top-K kernel's card test beyond the arxiv
+    chunk: its rows at every K; odd widths and unaligned row starts; exact
+    ties across the K-th place (duplicated columns, as duplicated SE rows
+    give; a top score repeated across lanes, warps and the row's ends; an
+    all-zero table); -inf columns; the S * K merge's narrow shape; +-0.0
+    and NaN."""
+    dev = chunk.device
+    every_k = (1, 2, 3, 8, 32)
+    yield "arxiv rows", chunk[:2048], every_k
+    for n, m in ((257, 1001), (33, 5), (100, 4097), (7, 4095), (3, 200003), (64, 4096)):
+        x = torch.randn(n * m + 1, generator=gen, device=dev)
+        for off in (0, 1):  # offset 1: no row starts 16-byte aligned where m % 4 == 0
+            yield f"random {n}x{m} +{off}", x[off:off + n * m].view(n, m), tuple(
+                k for k in every_k if k <= m)
+    cols = torch.randint(0, 64, (chunk.shape[1],), generator=gen, device=dev)
+    yield "duplicated columns", chunk[:512, cols].contiguous(), every_k
+    wide = chunk[:256].clone()
+    n = wide.shape[1]
+    spots = torch.tensor([1, 2, 5, 9, 130, 262, 1030, 2050, 4100, n - 3, n - 2, n - 1],
+                         device=dev)
+    wide[:, spots] = wide.max(dim=1, keepdim=True).values + 1.0
+    yield "top score at 12 spots", wide, every_k
+    yield "all zero", torch.zeros(64, 50, device=dev), every_k
+    neg = chunk[:512].clone()
+    neg[torch.rand(neg.shape, generator=gen, device=dev) < 0.5] = float("-inf")
+    neg[0] = float("-inf")
+    neg[1, 2:] = float("-inf")  # 2 finite scores
+    neg[2, :n // 2] = float("-inf")
+    yield "-inf columns", neg, every_k
+    ints = torch.randint(-2, 3, (65536, 8), generator=gen, device=dev).float()
+    yield "S*K merge 65536x4", ints[:, :4].contiguous(), (1, 2, 3, 4)
+    yield "S*K merge 65536x8", ints, (1, 2, 8)
+    signed = torch.randint(-1, 2, (512, 300), generator=gen, device=dev).float() * 0.0
+    yield "+-0.0", signed, every_k
+    nan = chunk[:512].clone()
+    nan[torch.rand(nan.shape, generator=gen, device=dev) < 1e-4] = float("nan")
+    nan[0, ::1000] = float("nan")
+    yield "NaN", nan, every_k
+
+
+def check_topk_kernel(chunk: torch.Tensor, k: int, card_name: str) -> dict:
+    """(ii): the top-K kernel against its plain version on the same score
+    tensors, values and indices bit for bit: the arxiv chunk ``chunk``
+    [8192, 169,343] at the run's K, then ``topk_cases``. The kernel's, the
+    plain version's and ``torch.topk``'s ms on the chunk, beside the bound
+    (one read of the chunk over HBM's rate)."""
+    from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
+    from gnn_tail_generalization_tpu_torch.ops.topk_kernels import (
+        top_k_plain, topk_rows_f32)
+
+    dev = chunk.device
+    got, want = topk_rows_f32(chunk, k), top_k_plain(chunk, k)
+    assert same_bits(got[0], want[0]) and torch.equal(got[1], want[1]), \
+        "the kernel differs from the plain version on the arxiv chunk"
+    again = topk_rows_f32(chunk, k)
+    assert same_bits(got[0], again[0]) and torch.equal(got[1], again[1])
+    del got, want, again
+    ms = median_ms(lambda: topk_rows_f32(chunk, k), reps=10, warmup=2)
+    plain_ms = median_ms(lambda: top_k_plain(chunk, k), reps=3, warmup=1)
+    library_ms = median_ms(lambda: torch.topk(chunk, k, dim=1), reps=5, warmup=1)
+    n_rows, n_cols = chunk.shape
+    bound_ms = (n_rows * n_cols * 4 + n_rows * k * 12) / K.HBM_BYTES_PER_S * 1e3
+    log(f"  top-K kernel on the {tuple(chunk.shape)} chunk, K={k}: bit-equal to the plain "
+        f"version; kernel {ms:.4f} ms, bound {bound_ms:.4f} ms (bytes), share "
+        f"{bound_ms / ms:.3f}, plain {plain_ms:.3f} ms, library_ms (torch.topk) "
+        f"{library_ms:.3f} ms [{card_name}]")
+    cases = {}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for name, scores, ks in topk_cases(chunk, gen):
+        for kk in ks:
+            gv, gi = topk_rows_f32(scores, kk)
+            wv, wi = top_k_plain(scores, kk)
+            ok = same_bits(gv, wv) and torch.equal(gi, wi)
+            cases[f"{name} K={kk}"] = ok
+            if not ok:
+                bad = ((gi != wi).any(1) | ~(gv.view(torch.int32) == wv.view(torch.int32)).all(1))
+                r = int(bad.nonzero()[0, 0])
+                log(f"  MISMATCH {name} K={kk} {tuple(scores.shape)}: {int(bad.sum())} rows; "
+                    f"row {r}: kernel {gv[r].tolist()} {gi[r].tolist()}, plain "
+                    f"{wv[r].tolist()} {wi[r].tolist()}")
+        log(f"  {name:24s} {tuple(scores.shape)} K={list(ks)}: bit-equal "
+            f"{all(cases[f'{name} K={kk}'] for kk in ks)}")
+        del scores
+    bad = [c for c, ok in cases.items() if not ok]
+    assert not bad, f"the kernel differs from the plain version: {bad}"
+    return {"shape": [n_rows, n_cols], "k": k, "ms": ms, "bound_ms": bound_ms,
+            "bound_by": "bytes", "share_of_bound": bound_ms / ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "cases": len(cases)}
+
+
+def replace_launches(cfg, pd, epochs: int) -> int:
+    """The top-K kernel's launches in ``epochs`` part-2 epochs: one a row
+    chunk (8,192 rows, ``latent_neighbor_replace``'s) of each replacement:
+    the train batch, the test batch, each head / tail / iso subset."""
+    bsz = min(cfg.batch_size, len(pd.train_idx))
+    rows = [bsz, bsz if len(pd.test_idx) else 0]
+    s = pd.splits
+    if cfg.want_headtail and s is not None:
+        rows += [len(s.large_deg_idx), len(s.small_deg_idx)]
+        if s.zero_deg_idx is not None:
+            rows.append(len(s.zero_deg_idx))
+    return epochs * sum(-(-r // 8192) for r in rows)
 
 
 def student_phase(pd, teacher_launches: int, card_name: str,
@@ -690,18 +811,22 @@ def student_phase(pd, teacher_launches: int, card_name: str,
     from gnn_tail_generalization_tpu_torch import main as port_main
     from gnn_tail_generalization_tpu_torch.config import build_config
     from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
+    from gnn_tail_generalization_tpu_torch.ops import topk_kernels as TK
 
     log("  (i) SEMLP through the port's main")
     K.reset_launch_counts()
+    TK.reset_launch_counts()
     res = port_main.main(SEMLP_ARGS)[0]
     counts = dict(K.LAUNCHES)
-    log(f"  launch counts over the SEMLP run: {counts}")
+    log(f"  launch counts over the SEMLP run: {counts}, {TK.LAUNCHES}")
     cfg = port_main.fitted_to(
         build_config(**port_main.parse_args(SEMLP_ARGS)[0]), pd)
     # the teacher's steps as in phase 3, plus the SE-table forward
     expect = {"spmm_csr_f32": teacher_launches + cfg.num_layers,
               "spmm_csr_bf16": 0, "spmm_csr_plain": 0}
     assert counts == expect, f"SEMLP launched {counts}, expected {expect}"
+    topk_expect = replace_launches(cfg, pd, 3)
+    assert TK.LAUNCHES["topk_rows_f32"] == topk_expect, (TK.LAUNCHES, topk_expect)
     for k, v in counts.items():
         totals[k] += v
     phases = {"teacher": res.extra["teacher"], "part1": res.extra["part1"],
@@ -1952,6 +2077,7 @@ def check_dist_replace(comm, cfg, pd, res) -> dict:
     from gnn_tail_generalization_tpu_torch.ops.topk_attention import (
         dist_latent_replace, latent_neighbor_replace)
     from gnn_tail_generalization_tpu_torch.train import loops
+    from gnn_tail_generalization_tpu_torch.utils import debug
 
     dev, g = comm.device, pd.graph
     k = cfg.SEMLP_topK_2_replace
@@ -1972,8 +2098,18 @@ def check_dist_replace(comm, cfg, pd, res) -> dict:
 
     got = op()
     ms = timed_ms(op, dev, reps=3)
+    # one call recorded: a top-K launch a row chunk and one for the merge of
+    # the shards' candidates, and no read back to the host
+    debug.reset()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        op()
+    counters = debug.recorded()["counters"]
+    debug.reset()
+    want_calls = -(-REPLACE_BATCH // 8192) + 1
+    assert counters == {"replace.select_calls": want_calls}, (counters, want_calls)
     full = comm.all_gather(se).reshape(-1, se.shape[1])[:g.n_node]
-    out = {"table": list(full.shape), "batch": REPLACE_BATCH, "ms": ms}
+    out = {"table": list(full.shape), "batch": REPLACE_BATCH, "ms": ms,
+           "counters": counters}
     if comm.shard == 0:
         want = latent_neighbor_replace(q, full, k)
         diff = (got - want).abs()
@@ -2249,6 +2385,7 @@ def sharded_students_phase(card_name: str, totals: dict, split_edge, msg,
         log(f"    (i) dist_latent_replace, table {rep['table']}, B={rep['batch']}: "
             f"{rep['ms']:.3f} ms a call"
             + (f" (one-device op {rep['one_device_ms']:.3f} ms)" if s == 1 else "")
+            + f", one call recorded: {rep['counters']} (no host read)"
             + f"; against the one-device op: max abs diff {rep['max_abs_diff']:.3e}, "
             f"{rep['rows_differ']} rows differ, {rep['rows_beyond_tol']} beyond "
             f"{REL_TOL:.0e} (each a tie at the K-th place) [{card_name}]")

@@ -46,7 +46,7 @@ def library_path() -> Path:
     for src in sources():
         h.update(src.name.encode() + b"\0" + src.read_bytes() + b"\0")
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libspmm_csr_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libkernels_{h.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
@@ -68,7 +68,7 @@ def build() -> Path:
 
 def load() -> ctypes.CDLL:
     """The loaded kernel library (built first if needed), with typed entry
-    points ``spmm_csr_f32`` and ``spmm_csr_bf16``."""
+    points ``spmm_csr_f32``, ``spmm_csr_bf16`` and ``topk_rows_f32``."""
     global _lib
     if _lib is None:
         _lib = bind(ctypes.CDLL(str(build())))
@@ -84,4 +84,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         # stream
         fn.argtypes = [p, p, p, p, p, i, i, i, i, i, p, p, i, p, i, i, p, p]
         fn.restype = i
+    # scores, n_rows, n_cols, ld, k, out_vals, out_idx, stream
+    lib.topk_rows_f32.argtypes = [p, i, i, ctypes.c_longlong, i, p, p, p]
+    lib.topk_rows_f32.restype = i
     return lib

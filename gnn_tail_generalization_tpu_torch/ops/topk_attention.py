@@ -5,17 +5,17 @@ The port of ``gnn_tail_generalization_tpu/ops/topk_attention.py``
 ``[B, se_dim] x [se_dim, N]`` score matmul per row chunk, the top-K of the
 raw scores, a softmax over those K, and the weighted sum of the selected SE
 rows, all without gradient. The JAX package computes it in plain XLA, outside
-any Pallas kernel, so here it is plain torch.
+any Pallas kernel; here the score matmul, the softmax and the weighted sum are
+plain torch, and the selection is a kernel.
 
 Two points keep it equal to the JAX op:
 
 - ``jax.lax.top_k`` picks the lowest index among exactly tied scores, and
-  ``torch.topk`` promises no order on ties. Rows where the K-th score is tied
-  with a score outside the selection are re-selected by a stable sort, and
-  the K selected are put in the JAX order (score descending, then index
-  ascending), so that the weighted sum adds them in the same order. The
-  check for such rows reads one flag a call back to the host
-  (``gnn.replace.read``, counted in ``host_syncs``).
+  orders the K by score descending, then index ascending, so the weighted
+  sum adds them in that order. ``top_k_lowest_index`` gives the same: on
+  the card one pass of the hand-written kernel of
+  ``ops/topk_kernels.py:topk_rows_f32`` over the score chunk, with no read
+  back to the host; on the CPU the plain version, ``top_k_plain``.
 - The scores are true f32 products: TF32 would change which neighbours are
   selected. The callers (``main``, ``chip_smoke.py``) turn TF32 off.
 
@@ -32,29 +32,17 @@ import torch
 
 from ..parallel.comm import Comm
 from ..utils import debug
+from . import topk_kernels
 
 
 def top_k_lowest_index(scores: torch.Tensor, k: int):
     """(values, indices) of the K largest scores per row, ordered as
     ``jax.lax.top_k`` orders them: score descending, and among exactly equal
-    scores the lower index first."""
-    vals, idx = torch.topk(scores, k, dim=1)
-    # rows whose K-th value also occurs outside the selection: the set of
-    # indices torch picked among the tied ones is unspecified
-    tied = (scores >= vals[:, -1:]).sum(dim=1) > k
-    with debug.host_read("gnn.replace.read"):
-        any_tied = bool(tied.any())
-    if any_tied:
-        with debug.host_read("gnn.replace.read"):
-            rows = tied.nonzero()[:, 0]
-        order = torch.sort(scores[rows], dim=1, descending=True, stable=True)[1]
-        idx[rows] = order[:, :k]
-        vals[rows] = scores[rows[:, None], idx[rows]]
-    # canonical order of the K: index ascending, then a stable sort by value
-    idx, perm = torch.sort(idx, dim=1)
-    vals = vals.gather(1, perm)
-    vals, perm = torch.sort(vals, dim=1, descending=True, stable=True)
-    return vals, idx.gather(1, perm)
+    scores the lower index first. The kernel on a CUDA tensor (it launches
+    or raises), the plain version on a CPU one."""
+    if scores.device.type == "cpu":
+        return topk_kernels.top_k_plain(scores, k)
+    return topk_kernels.topk_rows_f32(scores, k)
 
 
 @torch.no_grad()

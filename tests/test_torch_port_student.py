@@ -37,8 +37,9 @@ from gnn_tail_generalization_tpu_torch.data import datasets as tds
 from gnn_tail_generalization_tpu_torch.models import semlp
 from gnn_tail_generalization_tpu_torch.models.teacher import TeacherGNN
 from gnn_tail_generalization_tpu_torch.nn.mlp import MLP, BlockResMLP
+from gnn_tail_generalization_tpu_torch.ops import topk_kernels
 from gnn_tail_generalization_tpu_torch.ops.topk_attention import (
-    latent_neighbor_replace)
+    latent_neighbor_replace, top_k_lowest_index)
 from gnn_tail_generalization_tpu_torch.train import loops as tloops
 from gnn_tail_generalization_tpu_torch.train.optim import make_optimizer
 from gnn_tail_generalization_tpu_torch.utils.convert import (
@@ -179,21 +180,85 @@ def test_latent_neighbor_replace_matches_jax(rng, k, row_chunk, score_dtype):
     close(got, want)
 
 
-def test_latent_neighbor_replace_tie_breaking():
+def lexsort_top_k(scores: np.ndarray, k: int):
+    """numpy's (values, indices) of each row's K best: score descending,
+    then index ascending (np.lexsort's last key is its first)."""
+    idx = np.stack([np.lexsort((np.arange(row.size), -row))[:k] for row in scores])
+    return np.take_along_axis(scores, idx, axis=1), idx
+
+
+@pytest.mark.parametrize("neg_inf", [False, True], ids=["finite", "neg_inf"])
+@pytest.mark.parametrize("k", [1, 2, 3, 8])
+def test_latent_neighbor_replace_tie_breaking(k, neg_inf):
     """Exactly tied scores select the lowest index, as jax.lax.top_k does
-    (tests/test_torch_parity_tricks.py:362), in a chunk where only some
+    (tests/test_torch_parity_tricks.py:362): ``top_k_lowest_index`` (the
+    plain version on the CPU) against numpy's lexsort and JAX on rows of
+    many ties across the K-th place (and with -inf columns, as
+    ``dist_latent_replace`` pads a shard's rows, some rows holding fewer
+    than K finite scores); then the replacement on a chunk where only some
     rows tie."""
-    se = np.zeros((6, 4), np.float32)
+    rng = np.random.default_rng(k)
+    scores = rng.integers(-3, 4, size=(24, 40)).astype(np.float32)
+    if neg_inf:
+        scores[rng.random(scores.shape) < 0.5] = -np.inf
+        scores[0] = -np.inf
+        scores[1, k - 1:] = -np.inf
+    vals, idx = top_k_lowest_index(torch.from_numpy(scores), k)
+    want_vals, want_idx = lexsort_top_k(scores, k)
+    np.testing.assert_array_equal(idx.numpy(), want_idx)
+    np.testing.assert_array_equal(vals.numpy(), want_vals)
+    np.testing.assert_array_equal(np.asarray(jax.lax.top_k(jnp.asarray(scores), k)[1]),
+                                  want_idx)
+
+    se = np.zeros((12, 4), np.float32)
     se[:, 0] = 1.0  # every row scores 1 against guess row 0
     se[2, 1] = 5.0  # a distinguishable payload on row 2
     guess = np.asarray([[1.0, 0, 0, 0], [0, 1.0, 0, 0], [2.0, 1.0, 0, 0]],
                        np.float32)
     got = latent_neighbor_replace(torch.from_numpy(guess),
-                                  torch.from_numpy(se), 2).numpy()
-    close(got[0], (se[0] + se[1]) / 2.0, rtol=1e-5, atol=1e-6)  # never row 2
-    w = np.exp([5.0, 0.0]) / np.exp([5.0, 0.0]).sum()  # row 2, then row 0
-    close(got[1], w[0] * se[2] + w[1] * se[0], rtol=1e-5, atol=1e-6)
-    close(got, jreplace(jnp.asarray(guess), jnp.asarray(se), 2))
+                                  torch.from_numpy(se), k).numpy()
+    close(got[0], se[:k].mean(axis=0), rtol=1e-5, atol=1e-6)  # the k lowest rows
+    picked = [2, 0, 1, 3, 4, 5, 6, 7][:k]  # row 2, then the lowest of the tied
+    top = np.asarray([5.0] + [0.0] * (k - 1))
+    w = np.exp(top - top.max()) / np.exp(top - top.max()).sum()
+    close(got[1], w @ se[picked], rtol=1e-5, atol=1e-6)
+    close(got, jreplace(jnp.asarray(guess), jnp.asarray(se), k))
+
+
+@pytest.mark.parametrize("shape,k,dtype,transposed,error", [
+    ((4, 40), 33, torch.float32, False, ValueError),  # K above the kernel's 32
+    ((4, 40), 0, torch.float32, False, ValueError),
+    ((4, 40), 2, torch.float64, False, TypeError),
+    ((4, 40), 2, torch.bfloat16, False, TypeError),
+    ((40, 4), 2, torch.float32, True, ValueError),  # not contiguous
+    ((4, 3), 4, torch.float32, False, ValueError),  # fewer columns than K
+    ((4,), 2, torch.float32, False, ValueError),  # not 2-D
+], ids=["k33", "k0", "f64", "bf16", "non_contiguous", "n_cols_below_k", "1d"])
+def test_topk_kernel_argument_check_raises(shape, k, dtype, transposed, error):
+    """The kernel's argument check, which needs no card, refuses what the
+    kernel does not take; the CUDA route would raise there and never take
+    the plain version."""
+    scores = torch.zeros(shape, dtype=dtype)
+    if transposed:
+        scores = scores.T
+    with pytest.raises(error):
+        topk_kernels.check_rows(scores, k)
+
+
+def test_topk_kernel_route_takes_only_cuda_tensors():
+    """What the check accepts, and the kernel's wrapper raising on a device
+    other than CUDA (no fallback), while ``top_k_lowest_index`` sends a CPU
+    tensor to the plain version and no other."""
+    for shape, k in (((4, 40), 32), ((1, 1), 1), ((3, 5), 5)):
+        topk_kernels.check_rows(torch.zeros(shape), k)
+    meta = torch.zeros(4, 40, device="meta")
+    with pytest.raises(ValueError, match="no top-K kernel for device meta"):
+        top_k_lowest_index(meta, 2)
+    with pytest.raises(ValueError, match="no top-K kernel for device cpu"):
+        topk_kernels.topk_rows_f32(torch.zeros(4, 40), 2)
+    before = dict(topk_kernels.LAUNCHES)
+    top_k_lowest_index(torch.randn(4, 40), 2)
+    assert topk_kernels.LAUNCHES == before
 
 
 # ---------------------------------------------------------------------------
