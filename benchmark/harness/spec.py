@@ -12,10 +12,14 @@ metric is a file of its own, found by its name:
   reference;
 - ``benchmark/metrics/<metric>.py``: a per-layer metric's reader
   (``read(ctx)``); a metric ``<family>.<suffix>`` without a file of its
-  own is read by its family's ``<family>.py``.
+  own is read by its family's ``<family>.py``; one that reads a single
+  kernel calls ``harness/readers.py:kernel_ms`` or ``kernel_roofline`` with
+  a pattern of its name;
+- ``benchmark/tests/cells/<cell>.py``: a cell's tiny sizes and planted
+  faults for the CPU tests (``tests/test_bench_cells.py`` finds it).
 
 So a cell, a configuration or a metric is added by adding files and
-entries, never by editing one.
+entries, never by editing one (``tests/test_bench_files_alone.py``).
 """
 from __future__ import annotations
 

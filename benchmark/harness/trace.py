@@ -5,13 +5,16 @@ breakdown of the longest device operations and idle gaps.
 ``profile_step.py``'s op-class table and ``busy_ms``'s interval union. The window runs
 under ``torch.profiler`` (CPU and CUDA activities); its chrome trace is
 read back and deleted. An idle gap is labelled by what the host was doing
-when it began: the innermost span the harness opened (``record_function``)
-and the outermost torch operation running then, or "python" where none ran.
+when it began: the innermost span that the harness or the program opened
+(``record_function``) and the outermost torch operation running then, or
+"python" where none ran. ``kernel_s`` keeps every kernel's device time by
+its full name, so that a reader can take one kernel's time by a pattern.
 """
 from __future__ import annotations
 
 import bisect
 import collections
+import heapq
 import json
 import os
 import re
@@ -20,9 +23,10 @@ from pathlib import Path
 from typing import Dict, List, Tuple
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
-#: the prefixes of the spans the harness opens (``run.py``); torch's own
-#: ``record_function`` spans (e.g. one an optimizer step) label no gap
-HARNESS_SPANS = ("setup.", "window.")
+#: the prefixes of the spans that label idle gaps: the harness's (``run.py``)
+#: and the program's (``utils/debug.py``); torch's own ``record_function``
+#: spans (e.g. one an optimizer step) label no gap
+HARNESS_SPANS = ("setup.", "window.", "gnn.")
 SPMM_KERNEL = re.compile(r"\bspmm_\w+_kernel\b")
 #: (class, pattern) of device kernels, tried in order: the first match names
 #: the class. A cast runs as an elementwise kernel over
@@ -81,35 +85,36 @@ class Summary:
     span_s: float  # from the first kernel to the last device event's end
     device_ops: List[Tuple[str, float]] = field(default_factory=list)
     idle_gaps: List[Tuple[str, float]] = field(default_factory=list)
+    kernel_s: Dict[str, float] = field(default_factory=dict)  # every kernel, by full name
 
 
-def _host_label_finder(cpu_ops, spans):
-    """``label(t)``: the innermost harness span and the outermost torch op
-    on the host at time ``t`` (us)."""
+def _host_labels(times, cpu_ops, spans) -> List[str]:
+    """The label of each of the ascending host ``times`` (us): the innermost
+    span (the one that began last of those still open) and the outermost
+    torch op on the host then. One sweep over the spans, so that no number
+    of spans opened inside another hides the outer one."""
     spans = sorted(spans)  # (ts, end, name)
-    span_starts = [s for s, _, _ in spans]
     tops = []  # outermost ops: not inside the op before them
     for s, e, name in sorted(cpu_ops):
         if tops and s < tops[-1][1]:
             continue
         tops.append((s, e, name))
     top_starts = [s for s, _, _ in tops]
-
-    def label(t: float) -> str:
-        span = "outside spans"
-        i = bisect.bisect_right(span_starts, t) - 1
-        for j in range(i, max(i - 256, -1), -1):
-            s, e, name = spans[j]
-            if s <= t < e:
-                span = name
-                break
+    open_spans: List[Tuple[float, float, str]] = []  # heap of (-ts, end, name)
+    i, out = 0, []
+    for t in times:
+        while i < len(spans) and spans[i][0] <= t:
+            heapq.heappush(open_spans, (-spans[i][0], spans[i][1], spans[i][2]))
+            i += 1
+        while open_spans and open_spans[0][1] <= t:
+            heapq.heappop(open_spans)
+        span = open_spans[0][2] if open_spans else "outside spans"
         op = "python"
         k = bisect.bisect_right(top_starts, t) - 1
         if k >= 0 and tops[k][0] <= t < tops[k][1]:
             op = tops[k][2]
-        return f"{span} | {op}"
-
-    return label
+        out.append(f"{span} | {op}")
+    return out
 
 
 def summarize_events(events: List[dict], steps: int, window_s: float) -> Summary:
@@ -118,27 +123,31 @@ def summarize_events(events: List[dict], steps: int, window_s: float) -> Summary
     kernels = [e for e in dev if e["cat"] == "kernel"]
     class_s: Dict[str, float] = collections.Counter()
     by_name: Dict[str, float] = collections.Counter()
+    kernel_s: Dict[str, float] = collections.Counter()
     for e in dev:
         class_s[op_class(e["cat"], e["name"])] += e["dur"] / 1e6
         by_name[e["name"]] += e["dur"] / 1e6
+        if e["cat"] == "kernel":
+            kernel_s[e["name"]] += e["dur"] / 1e6
     if not kernels:
         return Summary(steps, window_s, dict(class_s), 0, 0.0, 0.0)
     t0 = min(e["ts"] for e in kernels)
     busy = merged((e["ts"], e["ts"] + e["dur"]) for e in dev if e["ts"] >= t0)
     end = busy[-1][1]
     gaps = [(e0, s1) for (_, e0), (s1, _) in zip(busy[:-1], busy[1:])]
-    label = _host_label_finder(
+    labels = _host_labels(
+        [s for s, _ in gaps],
         [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in events if e.get("cat") == "cpu_op"],
         [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
          if e.get("cat") == "user_annotation" and e["name"].startswith(HARNESS_SPANS)])
     gap_s: Dict[str, float] = collections.Counter()
-    for s, e in gaps:
-        gap_s[label(s)] += (e - s) / 1e6
+    for label, (s, e) in zip(labels, gaps):
+        gap_s[label] += (e - s) / 1e6
     return Summary(
         steps=steps, window_s=window_s, class_s=dict(class_s), kernels=len(kernels),
         busy_s=sum(e - s for s, e in busy) / 1e6, span_s=(end - t0) / 1e6,
         device_ops=[(n[:120], s) for n, s in by_name.most_common(TOP)],
-        idle_gaps=[(n[:120], s) for n, s in gap_s.most_common(TOP)])
+        idle_gaps=[(n[:120], s) for n, s in gap_s.most_common(TOP)], kernel_s=dict(kernel_s))
 
 
 def traced(run_window, trace_path: Path) -> Summary:

@@ -1,6 +1,7 @@
-"""The benchmark's own tests: CPU runs of every cell at a tiny size, the
-readers and the roofline arithmetic, the exits; one marker, ``card``, for
-the tests that need a CUDA card (they skip without one).
+"""The benchmark's own tests: CPU runs of every cell at a tiny size (each
+cell's sizes and faults in ``cells/<cell>.py``), the readers and the
+roofline arithmetic, the exits; one marker, ``card``, for the tests that
+need a CUDA card (they skip without one).
 
     python -m pytest benchmark/tests -q
 """
@@ -10,7 +11,7 @@ from pathlib import Path
 import pytest
 
 BENCH = Path(__file__).resolve().parent.parent
-for p in (str(BENCH), str(BENCH.parent)):
+for p in (str(BENCH), str(BENCH.parent), str(BENCH / "tests")):
     if p not in sys.path:
         sys.path.insert(0, p)
 

@@ -1,10 +1,14 @@
 """Every cell on the CPU at a tiny size: one run against its plain
 reference, the control and the planted faults coming out not correct, and
-the run's exits."""
+the run's exits. A cell's tiny sizes (``TINY``) and faults (``FAULTS``,
+``EVAL_FAULTS``: functions of ``monkeypatch``) are in its own file,
+``cells/<cell>.py``, found here by its name."""
+import importlib.util
 import json
 import subprocess
 import sys
 import types
+from pathlib import Path
 
 import pytest
 import torch
@@ -12,17 +16,23 @@ import torch
 import run
 from harness import spec
 
-LINK = {"dataset": {"n_node": 5000, "n_raw_edge": 40000, "n_valid": 200, "n_test": 200},
-        "model": {"batch_size": 1024}}
-NODE = {"dataset": {"n_node": 9000, "n_raw_edge": 40000}}
-TINY = {
-    "coldbrew-arxiv.teacher": {"config": NODE, "traffic": {"epochs_per_call": 1}},
-    "coldbrew-arxiv.student": {"config": {**NODE, "student": {"batch_size": 1024}},
-                               "traffic": {"epochs_per_call": 1}},
-    "i2gtl-citation2-sage.train": {"config": LINK, "traffic": {"steps_per_slice": 1}},
-    "i2gtl-citation2-sage.eval": {"config": LINK},
-}
+CELLS_DIR = Path(__file__).resolve().parent / "cells"
 SEED = 2**31 + 12345  # seeds run past 32 signed bits
+
+
+def _load_cell(path):
+    mod_spec = importlib.util.spec_from_file_location(
+        "bench_cell_" + path.stem.replace("-", "_").replace(".", "_"), path)
+    mod = importlib.util.module_from_spec(mod_spec)
+    mod_spec.loader.exec_module(mod)
+    return mod
+
+
+CELLS = {p.name[:-len(".py")]: _load_cell(p) for p in sorted(CELLS_DIR.glob("*.py"))}
+TINY = {name: cell.TINY for name, cell in CELLS.items()}
+FAULTS = [(name, f) for name, cell in CELLS.items() for f in getattr(cell, "FAULTS", ())]
+EVAL_FAULTS = [(name, f) for name, cell in CELLS.items()
+               for f in getattr(cell, "EVAL_FAULTS", ())]
 
 
 def tiny_run(name, trace=False):
@@ -43,7 +53,8 @@ def tiny_cell(name):
 
 
 def test_every_cell_is_covered():
-    assert sorted(TINY) == sorted(w["name"] for w in spec.load_benchmark()["workloads"])
+    """One test file a cell of ``BENCHMARK.json``, and none for another."""
+    assert sorted(CELLS) == sorted(w["name"] for w in spec.load_benchmark()["workloads"])
 
 
 @pytest.mark.parametrize("name", sorted(TINY))
@@ -89,83 +100,6 @@ def test_control_is_not_correct_at_the_cells_size(card, name):
         assert bool(over) == (row["kind"] == "control"), row
 
 
-class _HalfCE:
-    """``torch.nn.functional`` whose cross-entropy takes the first half of
-    the rows alone."""
-
-    def __getattr__(self, name):
-        return getattr(torch.nn.functional, name)
-
-    @staticmethod
-    def cross_entropy(logits, y):
-        n = logits.shape[0] // 2
-        return torch.nn.functional.cross_entropy(logits[:n], y[:n])
-
-
-def _frozen(monkeypatch):
-    monkeypatch.setattr(torch.optim.Adam, "step", lambda self, closure=None: None)
-
-
-def _teacher_half(monkeypatch):
-    from gnn_tail_generalization_tpu_torch.train import loops
-
-    nll = loops._nll_masked
-
-    def half(logits, y, mask, n_masked=None):
-        rows = mask.nonzero()[:, 0]
-        keep = torch.zeros_like(mask)
-        keep[rows[: rows.numel() // 2]] = True
-        return nll(logits, y, keep)
-    monkeypatch.setattr(loops, "_nll_masked", half)
-
-
-def _student_half(monkeypatch):
-    from gnn_tail_generalization_tpu_torch.train import loops
-
-    monkeypatch.setattr(loops, "F", _HalfCE())
-
-
-def _link_half(monkeypatch):
-    from gnn_tail_generalization_tpu_torch.linkpred import model as lpm
-
-    loss = lpm.compute_loss
-
-    def half(cfg, pos_out, neg_out, margin=None, valid=None):
-        n = pos_out.shape[0] // 2
-        return loss(cfg, pos_out[:n], neg_out[: n * cfg.num_neg], margin, valid[:n])
-    monkeypatch.setattr(lpm, "compute_loss", half)
-
-
-def _eval_half(monkeypatch):
-    from gnn_tail_generalization_tpu_torch.linkpred import metrics
-
-    mrr = metrics.mrr
-
-    def half(pos, neg):
-        n = pos.shape[0] // 2
-        return mrr(pos[:n], neg[:n])
-    monkeypatch.setattr(metrics, "mrr", half)
-
-
-def _eval_score_alter(monkeypatch):
-    from gnn_tail_generalization_tpu_torch.linkpred.predictors import DotPredictor
-
-    forward = DotPredictor.forward
-
-    def altered(self, x_i, x_j, *, generator=None):
-        out = forward(self, x_i, x_j, generator=generator).clone()
-        out[::2] -= 1.0
-        return out
-    monkeypatch.setattr(DotPredictor, "forward", altered)
-
-
-FAULTS = [("coldbrew-arxiv.teacher", _frozen), ("coldbrew-arxiv.teacher", _teacher_half),
-          ("coldbrew-arxiv.student", _frozen), ("coldbrew-arxiv.student", _student_half),
-          ("i2gtl-citation2-sage.train", _frozen), ("i2gtl-citation2-sage.train", _link_half),
-          ("i2gtl-citation2-sage.eval", _eval_half),
-          ("i2gtl-citation2-sage.eval", _eval_score_alter)]
-
-
 @pytest.mark.parametrize("name,fault", FAULTS, ids=[f"{n}-{f.__name__}" for n, f in FAULTS])
 def test_fault_in_the_timed_path_is_not_correct(monkeypatch, name, fault):
     """A run whose timed path is broken underneath: a step that leaves its
@@ -173,39 +107,6 @@ def test_fault_in_the_timed_path_is_not_correct(monkeypatch, name, fault):
     it is produced."""
     fault(monkeypatch)
     assert tiny_run(name)["correct"] is False
-
-
-def _alter_rows(logits):
-    """Every other row's logits rolled by one class."""
-    logits = logits.clone()
-    logits[::2] = logits[::2].roll(1, dims=1)
-    return logits
-
-
-def _teacher_eval_alter(monkeypatch):
-    from gnn_tail_generalization_tpu_torch.models.teacher import TeacherGNN
-
-    forward = TeacherGNN.forward
-
-    def altered(self, *args, **kwargs):
-        out = forward(self, *args, **kwargs)
-        return out if self.training else (out[0], _alter_rows(out[1]), *out[2:])
-    monkeypatch.setattr(TeacherGNN, "forward", altered)
-
-
-def _student_eval_alter(monkeypatch):
-    from gnn_tail_generalization_tpu_torch.models.semlp import SEMLPPart2
-
-    forward = SEMLPPart2.forward
-
-    def altered(self, *args, **kwargs):
-        out = forward(self, *args, **kwargs)
-        return out if self.training else _alter_rows(out)
-    monkeypatch.setattr(SEMLPPart2, "forward", altered)
-
-
-EVAL_FAULTS = [("coldbrew-arxiv.teacher", _teacher_eval_alter),
-               ("coldbrew-arxiv.student", _student_eval_alter)]
 
 
 @pytest.mark.parametrize("name,fault", EVAL_FAULTS, ids=[n for n, _ in EVAL_FAULTS])

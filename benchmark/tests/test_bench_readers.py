@@ -74,14 +74,18 @@ def test_summary_of_a_hand_written_trace():
 
 
 def test_gaps_are_labelled_by_the_harness_spans_alone():
-    """Torch's own spans, however many, neither label a gap nor hide the
-    harness's span around them."""
+    """The spans that label a gap are the harness's and the program's
+    (``gnn.``): the innermost open one, however many closed before it
+    inside the outer one. Torch's own spans, however many, neither label a
+    gap nor hide the span around them."""
     inner = [_ev("user_annotation", "Optimizer.step#Adam.step", 10 + i * 0.1, 0.05)
              for i in range(300)]
-    s = trace.summarize_events(EVENTS + inner, steps=2, window_s=0.0006)
+    closed = [_ev("user_annotation", "gnn.replace", 40 + i * 0.1, 0.05) for i in range(300)]
+    read = [_ev("user_annotation", "gnn.teacher.read", 390, 60)]
+    s = trace.summarize_events(EVENTS + inner + closed + read, steps=2, window_s=0.0006)
     assert dict(s.idle_gaps) == pytest.approx({"window.unit | aten::to": 20e-6,
                                                "window.unit | python": 80e-6,
-                                               "window.unit | aten::item": 50e-6})
+                                               "gnn.teacher.read | aten::item": 50e-6})
 
 
 def test_readers_on_the_hand_written_trace():
@@ -95,6 +99,56 @@ def test_readers_on_the_hand_written_trace():
     assert readers.mfu(r) == pytest.approx(50.0)
     assert readers.spmm_roofline(r) == pytest.approx(20.0)
     assert spec.load_module("metrics", "prep_s").read(r) == 1.5
+
+
+#: each metric file's reading of ``EVENTS`` with the work of
+#: ``test_readers_on_the_hand_written_trace``, as the readers gave it before
+#: the summary kept every kernel's time
+BEFORE = {"launches.epoch": 2.0, "dense_ms.epoch": 0.02, "passes_ms.epoch": 0.035,
+          "topk_ms.epoch": 0.0, "spmm_roofline.epoch": 20.0, "idle_share.epoch": 37.5,
+          "mfu.epoch": 50.0, "prep_s": 1.5}
+
+
+def test_metric_files_read_the_hand_written_trace_as_before():
+    s = trace.summarize_events(EVENTS, steps=2, window_s=0.0006)
+    r = run.Readings(s, {"flops": 67e12 * 0.0003 * 0.5, "spmm_least_s": 5e-6}, {"prep": 1.5})
+    got = {name: spec.load_module("metrics", name).read(r) for name in BEFORE}
+    assert got == pytest.approx(BEFORE)
+
+
+# 12 distinct kernels: one that no class matches, and one whose time ranks
+# it below the top 10 of ``device_ops``
+MANY = ([_ev("kernel", f"vectorized_elementwise_kernel<op{i}>", 1000 * i, 100 + i)
+         for i in range(10)]
+        + [_ev("kernel", "void graph_attention_fwd<float, 64>(int)", 20000, 300),
+           _ev("kernel", "void graph_attention_fwd<float, 64>(int)", 21000, 100),
+           _ev("kernel", "void small_kernel<1>(float*)", 22000, 5),
+           _ev("gpu_memcpy", "Memcpy DtoD", 23000, 50)])
+
+
+def test_summary_keeps_every_kernels_device_time():
+    s = trace.summarize_events(MANY, steps=2, window_s=0.03)
+    assert len(s.kernel_s) == 12 and "Memcpy DtoD" not in s.kernel_s
+    assert s.kernel_s["void graph_attention_fwd<float, 64>(int)"] == pytest.approx(400e-6)
+    assert s.kernel_s["void small_kernel<1>(float*)"] == pytest.approx(5e-6)
+    assert "void small_kernel<1>(float*)" not in dict(s.device_ops)
+    assert trace.op_class("kernel", "void graph_attention_fwd<float, 64>(int)") == "other"
+    assert sum(s.kernel_s.values()) == pytest.approx(
+        sum(v for k, v in s.class_s.items() if k != "copies"))
+
+
+def test_kernel_readers_on_a_hand_written_trace():
+    s = trace.summarize_events(MANY, steps=2, window_s=0.03)
+    r = run.Readings(s, {"attn_least_s": 50e-6}, {})
+    assert readers.kernel_ms(r, r"graph_attention_fwd") == pytest.approx(0.2)
+    assert readers.kernel_ms(r, r"\bsmall_kernel<") == pytest.approx(0.0025)
+    assert readers.kernel_ms(r, r"elementwise_kernel<op[0-1]>") == pytest.approx(0.1005)
+    assert readers.kernel_roofline(r, r"graph_attention_fwd", "attn_least_s") == (
+        pytest.approx(25.0))
+    assert readers.kernel_ms(r, r"no_such_kernel") is None
+    assert readers.kernel_roofline(r, r"no_such_kernel", "attn_least_s") is None
+    assert readers.kernel_roofline(r, r"small_kernel", "no_such_work") is None
+    assert readers.kernel_ms(run.Readings(None, {}, {}), r"small_kernel") is None
 
 
 def test_readers_without_a_trace_find_nothing():
