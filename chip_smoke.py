@@ -77,7 +77,11 @@ Phases (any failure exits non-zero; nothing is caught):
    and 8,192 test positives with 50 sampled negatives each, message edges
    the symmetrized rest, ~30.4M; 128 features drawn on the card), with the
    host build's seconds and the maximum in-degree: (i) both kernels against
-   the plain version on that graph at d=256; (ii) the JAX package's bench
+   the plain version on that graph at d=256, and the attention rows' kernel
+   (``edge_attn_rows``, softmax and grad mode, on N(0, 1) operands) against
+   its plain version there, within ``REL_TOL`` of the largest entry, two
+   launches bit-identical, with its ms, the plain version's, the bound and
+   the share; (ii) the JAX package's bench
    config (SAGE + DOT, ``ce_loss``, features, no embedding, batch 65,536,
    3 negatives, ``pallas_bf16``) through ``train_linkpred``, 2 epochs of 8
    steps, the bf16 kernel launched exactly 1 + 2 per step + 1 per eval and
@@ -89,9 +93,10 @@ Phases (any failure exits non-zero; nothing is caught):
    plain step's own sum-order floor, the largest over three reorderings
    (the kernels sum in another order than the plain version, so no step is
    expected to be bit-identical); (vi) GCN (the f32 kernel) and the
-   Transformer (no launch) at the bench shape; (vii) ``--exp_mode=I2_GTL
-   --task=linkp`` through ``main`` (the 2,000-node stand-in, dense, no
-   launch);
+   Transformer (B1 8 a step and 2 an eval encode, the attention rows'
+   kernels 4 a step and 2 an eval encode) at the bench shape; (vii)
+   ``--exp_mode=I2_GTL --task=linkp`` through ``main`` (the 2,000-node
+   stand-in, dense, no launch);
 8. the rest of the single-device CLI: (i) a full-size fake ogbn-arxiv raw
    set (169,343 nodes, 1,166,243 edges, 128 features, 40 classes) written to
    a directory under ``_chip/``, read through ``load_dataset`` (the reader
@@ -297,11 +302,14 @@ import numpy as np
 import torch
 
 REL_TOL = 1e-5
-SOURCE = "gnn_tail_generalization_tpu_torch/csrc/spmm_csr.cu"
-KERNELS = {  # wrapper -> the Pallas kernel it replaces
-    "spmm_csr_f32": "gnn_tail_generalization_tpu/ops/spmm_pallas.py:305",
-    "spmm_csr_bf16": "gnn_tail_generalization_tpu/ops/spmm_pallas.py:389",
+SPMM_SOURCE = "gnn_tail_generalization_tpu_torch/csrc/spmm_csr.cu"
+KERNELS = {  # wrapper -> (what it replaces in the JAX package, its source)
+    "spmm_csr_f32": ("gnn_tail_generalization_tpu/ops/spmm_pallas.py:305", SPMM_SOURCE),
+    "spmm_csr_bf16": ("gnn_tail_generalization_tpu/ops/spmm_pallas.py:389", SPMM_SOURCE),
+    "edge_attn_rows_f32": ("plain XLA: gnn_tail_generalization_tpu/linkpred/encoders.py",
+                           "gnn_tail_generalization_tpu_torch/csrc/edge_attention.cu"),
 }
+ATTN_D = 256  # the link Transformer's width
 SLICE_ARGS = ["--dataset=ogbn-arxiv", "--train_which=TeacherGNN", "--epochs=3",
               "--device=cuda", "--log_every=1"]
 # '111': under the Initial trick every conv takes SE flag [1]
@@ -791,6 +799,56 @@ def check_topk_kernel(chunk: torch.Tensor, k: int, card_name: str) -> dict:
             "library_ms": library_ms, "cases": len(cases)}
 
 
+def check_attn_rows(g, gen: torch.Generator, card_name: str) -> dict:
+    """Phase 7 (i): the attention rows' kernel (``edge_attn_rows`` on the
+    card, ``csrc/edge_attention.cu``) against its plain version on the same
+    operands of width ``ATTN_D`` (N(0, 1): logits of unit spread), on
+    ``g``'s forward CSR and row schedule, in softmax and grad mode: max
+    |kernel - plain| / max |plain| <= REL_TOL, two launches bit-identical.
+    Each mode's kernel and plain ms beside the bound (bytes: the row
+    operand's rows, each source row of the source operand once, indices,
+    row pointers, the [E] scalars read and written; or 2 nnz d operations)."""
+    from gnn_tail_generalization_tpu_torch.ops import edge_attention as EA
+    from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
+
+    dev, d, scale = g.indptr.device, ATTN_D, ATTN_D ** -0.5
+    q, k, v, d_out = (torch.randn(g.n_node, d, generator=gen, device=dev) for _ in range(4))
+    n_dst = int((g.indptr[1:] > g.indptr[:-1]).sum())
+    n_src = int(torch.unique(g.indices).numel())
+    alpha = EA.edge_attn_rows("softmax", g.indptr, g.indices, q, k, scale, schedule=g.schedule)
+    res = {}
+    for mode, a, b, al in (("softmax", q, k, None), ("grad", d_out, v, alpha)):
+        def kernel():
+            return EA.edge_attn_rows(mode, g.indptr, g.indices, a, b, scale, alpha=al,
+                                     schedule=g.schedule)
+
+        def plain():
+            return EA.edge_attn_rows_plain(mode, g.indptr, g.indices, a, b, scale, al)
+        got, again, want = kernel(), kernel(), plain()
+        abs_err = (got - want).abs().max().item()
+        rel = abs_err / max(want.abs().max().item(), 1e-30)
+        same = same_bits(got, again)
+        del got, again, want
+        ms = median_ms(kernel, reps=10, warmup=2)
+        plain_ms = median_ms(plain, reps=3, warmup=1)
+        nbytes = ((n_dst + n_src) * d * 4 + g.n_edge * 4 + (g.n_node + 1) * 4
+                  + g.n_edge * 4 * (2 if mode == "grad" else 1))
+        t_bytes = nbytes / K.HBM_BYTES_PER_S * 1e3
+        t_ops = 2 * g.n_edge * d / K.F32_FLOPS * 1e3
+        bound_ms, bound_by = max((t_bytes, "bytes"), (t_ops, "ops"))
+        log(f"  edge_attn_rows {mode:7s} citation2 d={d} max_abs_err={abs_err:.3e} "
+            f"rel_err={rel:.3e} two launches bit-identical: {same} kernel_ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}) "
+            f"share={bound_ms / ms:.3f} [{card_name}]")
+        assert rel <= REL_TOL, f"edge_attn_rows {mode}: rel err {rel} > {REL_TOL}"
+        assert same, f"edge_attn_rows {mode}: two launches differ"
+        res[mode] = {"max_abs_err": abs_err, "rel_err": rel, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "share_of_bound": bound_ms / ms}
+    return {"max_abs_err": max(r["max_abs_err"] for r in res.values()),
+            "max_rel_err": max(r["rel_err"] for r in res.values()), **res}
+
+
 def replace_launches(cfg, pd, epochs: int) -> int:
     """The top-K kernel's launches in ``epochs`` part-2 epochs: one a row
     chunk (8,192 rows, ``latent_neighbor_replace``'s) of each replacement:
@@ -1178,6 +1236,7 @@ def linkpred_phase(card_name: str, totals: dict, dev) -> tuple:
     which phase 11 trains on."""
     from gnn_tail_generalization_tpu_torch import main as port_main
     from gnn_tail_generalization_tpu_torch.linkpred import model as lpm
+    from gnn_tail_generalization_tpu_torch.ops import edge_attention as EA
     from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
 
     t_phase = time.perf_counter()
@@ -1205,6 +1264,9 @@ def linkpred_phase(card_name: str, totals: dict, dev) -> tuple:
             kernel_ms[f"{name} {tag}"] = compare(name, fn, gg, x, bf16, card_name, tag,
                                                  reps=5)
         del x
+    torch.cuda.empty_cache()
+    log(f"  (i) the attention rows' kernel against the plain version, d={ATTN_D}")
+    attn_rows = check_attn_rows(g, gen, card_name)
     torch.cuda.empty_cache()
 
     x = torch.randn(C2_NODES, C2_FEATS, generator=gen, device=dev)
@@ -1245,10 +1307,19 @@ def linkpred_phase(card_name: str, totals: dict, dev) -> tuple:
     log("  (vi) GCN and Transformer at the bench shape: 2 steps each")
     split_b, msg_b, _ = lp_split(BENCH_NODES, BENCH_EDGES)
     others = {}
-    for kind, expect in (("GCN", {"spmm_csr_f32": 2 * 4 + 2}), ("Transformer", {})):
+    # the Transformer a step: B1 once a layer forward (A_alpha v) and three
+    # times backward (dv, dq, dk), the attention rows' kernels once a layer
+    # each way; the eval encode the forward of both layers
+    for kind, expect, attn in (("GCN", {"spmm_csr_f32": 2 * 4 + 2}, 0),
+                               ("Transformer", {"spmm_csr_f32": 2 * 8 + 2}, 2 * 4 + 2)):
+        EA.reset_launch_counts()
         others[kind] = run_linkpred(
             lpm.LinkPredConfig(encoder=kind), None, split_b, msg_b, BENCH_NODES,
             expect, kind, card_name, totals, dev, epochs=1, max_steps_per_epoch=2)
+        assert EA.LAUNCHES == {"edge_attn_rows_f32": attn, "edge_attn_rows_plain": 0}, \
+            f"{kind} attention launches {EA.LAUNCHES}, expected {attn}"
+        for k, v in EA.LAUNCHES.items():
+            totals[k] += v
 
     log("  (vii) --exp_mode=I2_GTL through the port's main (2,000-node stand-in)")
     K.reset_launch_counts()
@@ -1260,7 +1331,7 @@ def linkpred_phase(card_name: str, totals: dict, dev) -> tuple:
 
     return {"phase_s": phase_s, "n_node": C2_NODES, "n_msg_edges": g.n_edge, "max_in_degree": max_in,
             "host_build_s": {"split": split_s, "csr_pair": csr_s},
-            "kernels_d256": kernel_ms,
+            "kernels_d256": kernel_ms, "attn_rows": attn_rows,
             "bench": {**bench_run, "step_ms": bench_run["epoch_s"][1] / 8 * 1e3},
             "bench_timed": timed,
             "default": {**default_run,
@@ -3419,6 +3490,8 @@ def bench_twins_phase(card_name: str, totals: dict) -> dict:
     import bench_linkpred_torch as LP
     import bench_torch as BT
 
+    from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
+
     t_phase = time.perf_counter()
     bench, bench_s = run_twin("bench_torch.py")
     print(json.dumps(bench), flush=True)
@@ -3431,7 +3504,7 @@ def bench_twins_phase(card_name: str, totals: dict) -> dict:
     assert bench["dist_numerics_ok"] is True, bench["dist_loss_rel_diff_max"]
     timed = BT.WINDOWS * BT.TIMED_STEPS
     assert bench["timed_steps"] == timed, bench["timed_steps"]
-    expect = {k: 0 for k in totals}
+    expect = {k: 0 for k in K.LAUNCHES}  # the SpMM counts the twins report
     expect["spmm_csr_bf16"] = 2 * bench["num_layers"] * timed
     for key in ("kernel_launches", "dist_kernel_launches"):
         log(f"  bench_torch.py {key}: {bench[key]}, expected {expect}")
@@ -3447,7 +3520,7 @@ def bench_twins_phase(card_name: str, totals: dict) -> dict:
     assert 0 < ogb["mrr"] <= 1, ogb["mrr"]
     assert (link["warm_epoch_steps"], link["timed_epochs"]) == (LP.TIMED_STEPS,
                                                                LP.TIMED_EPOCHS)
-    expect_lp = {k: 0 for k in totals}
+    expect_lp = {k: 0 for k in K.LAUNCHES}
     expect_lp["spmm_csr_bf16"] = 2 * LP.TIMED_STEPS * LP.TIMED_EPOCHS
     log(f"  bench_linkpred_torch.py kernel_launches: {link['kernel_launches']}, "
         f"expected {expect_lp}")
@@ -3467,6 +3540,7 @@ def profile_phase(pd, card_name: str, totals: dict) -> dict:
     its JSON checked, its launch counts added to ``totals``."""
     from gnn_tail_generalization_tpu_torch import main as port_main
     from gnn_tail_generalization_tpu_torch.config import build_config
+    from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
 
     t_phase = time.perf_counter()
     out_dir = scratch_dir("phase16-")
@@ -3481,7 +3555,7 @@ def profile_phase(pd, card_name: str, totals: dict) -> dict:
     argv = TRICK_BASE + TRICK_RUNS[trick]
     cfg = port_main.fitted_to(build_config(**port_main.parse_args(argv)[0]), pd)
     expect = {trick: expected_launches(cfg, report["epochs"]),
-              lp: {k: (N_PROP if k == "spmm_csr_f32" else 0) for k in totals}}
+              lp: {k: (N_PROP if k == "spmm_csr_f32" else 0) for k in K.LAUNCHES}}
     out = {}
     for name in PROFILE_CELLS:
         cell = out[name] = report["cells"][name]
@@ -3523,6 +3597,7 @@ def main() -> int:
     from gnn_tail_generalization_tpu_torch.graph.core import (
         build_graph, standard_pipeline)
     from gnn_tail_generalization_tpu_torch.ops import _build
+    from gnn_tail_generalization_tpu_torch.ops import edge_attention as EA
     from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
     from gnn_tail_generalization_tpu_torch.train.loops import final_agg_view
     from gnn_tail_generalization_tpu_torch.utils.device import card
@@ -3609,6 +3684,7 @@ def main() -> int:
     log("== phase 3: the slice through the port's main")
     launches, step_ms = {}, {}
     totals = {k: 0 for k in K.LAUNCHES}  # launches over every phase
+    totals.update({k: 0 for k in EA.LAUNCHES})
     for method, kernel in (("auto", "spmm_csr_f32"),
                            ("pallas_bf16", "spmm_csr_bf16")):
         K.reset_launch_counts()
@@ -3676,10 +3752,11 @@ def main() -> int:
     log(f"== phase 16: the profiler (profile_step.py, cells {', '.join(PROFILE_CELLS)})")
     profile = profile_phase(pd, card_name, totals)
 
-    assert totals["spmm_csr_plain"] == 0, totals
-    kernels = [{"name": name, "route": "cuda", "source": SOURCE,
-                "replaces": KERNELS[name], "launches": totals[name], **stats[name]}
-               for name in KERNELS]
+    assert totals["spmm_csr_plain"] == 0 and totals["edge_attn_rows_plain"] == 0, totals
+    stats["edge_attn_rows_f32"].update(linkpred["attn_rows"])
+    kernels = [{"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": totals[name], **stats[name]}
+               for name, (replaces, source) in KERNELS.items()]
     print(json.dumps({"kernels": kernels, "step_ms": step_ms,
                       "student": student, "trick_step_ms": tricks,
                       "propagation": propagation, "linkpred": linkpred,

@@ -12,9 +12,10 @@ Conv semantics (the PyG layers the reference instantiates):
 - TransformerConv: single-head dot-product attention over in-edges
 
 Every aggregation runs through ``ops/spmm.py:spmm``, so the CUDA CSR
-kernels on the card. The attention is plain torch on the forward CSR: the
-edges of row r are its in-edges, their sources ``indices``. flax infers
-input widths; here each layer takes ``in_channels``.
+kernels on the card. The attention is ``ops/edge_attention.py``'s op on the
+forward CSR (the edges of row r are its in-edges, their sources
+``indices``): the edge-softmax kernel and B1 on the card, with no ``[E, d]``
+tensor. flax infers input widths; here each layer takes ``in_channels``.
 
 Under ``pallas_bf16`` the SAGE, WSAGE and GCN Dense layers compute in bf16,
 as the JAX package's ``dtype=bfloat16`` Dense does: operands and parameters
@@ -31,9 +32,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..graph.core import Graph, edge_rows
+from ..graph.core import Graph
 from ..nn.dropout import dropout as _dropout
 from ..nn.mlp import dense_layer
+from ..ops.edge_attention import edge_attention
 from ..ops.spmm import spmm
 
 
@@ -130,20 +132,7 @@ class TransformerConv(nn.Module):
         self.skip = dense_layer(in_channels, out_channels, generator)
 
     def forward(self, g: Graph, x: torch.Tensor, agg=None) -> torch.Tensor:
-        d = self.query.out_features
-        q, k, v = self.query(x), self.key(x), self.value(x)
-        dst = edge_rows(g.indptr, g.n_edge)
-        src = g.indices.long()
-        logits = torch.sum(q[dst] * k[src], dim=-1) / float(d) ** 0.5
-        # the softmax is shift-invariant, so the row maximum takes no gradient
-        seg_max = torch.full((g.n_node,), float("-inf"), device=x.device
-                             ).scatter_reduce(0, dst, logits.detach(), "amax")
-        expd = torch.exp(logits - seg_max[dst])
-        denom = torch.zeros(g.n_node, device=x.device).index_add(0, dst, expd)
-        alpha = expd / torch.clamp(denom[dst], min=1e-16)
-        out = torch.zeros(g.n_node, d, device=x.device).index_add(
-            0, dst, v[src] * alpha[:, None])
-        return out + self.skip(x)
+        return edge_attention(g, self.query(x), self.key(x), self.value(x)) + self.skip(x)
 
 
 _CONVS = {

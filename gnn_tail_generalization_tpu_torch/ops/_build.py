@@ -68,7 +68,8 @@ def build() -> Path:
 
 def load() -> ctypes.CDLL:
     """The loaded kernel library (built first if needed), with typed entry
-    points ``spmm_csr_f32``, ``spmm_csr_bf16`` and ``topk_rows_f32``."""
+    points ``spmm_csr_f32``, ``spmm_csr_bf16``, ``topk_rows_f32`` and
+    ``edge_attn_rows_f32``."""
     global _lib
     if _lib is None:
         _lib = bind(ctypes.CDLL(str(build())))
@@ -87,4 +88,10 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     # scores, n_rows, n_cols, ld, k, out_vals, out_idx, stream
     lib.topk_rows_f32.argtypes = [p, i, i, ctypes.c_longlong, i, p, p, p]
     lib.topk_rows_f32.restype = i
+    # mode, indptr, indices, a, b, alpha, out, n_rows, d, vec, nv, scale,
+    # hub_rows, hub_chunk_ptr, n_hub, chunk_bounds, n_chunks, threshold,
+    # partial, stream
+    lib.edge_attn_rows_f32.argtypes = [i, p, p, p, p, p, p, i, i, i, i, ctypes.c_float,
+                                       p, p, i, p, i, i, p, p]
+    lib.edge_attn_rows_f32.restype = i
     return lib
