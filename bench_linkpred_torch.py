@@ -27,8 +27,9 @@ Then, in the original's order:
    ``kernel_launches`` the SpMM wrappers' counts over the timed epochs;
 3. the OGB protocol (``bench_linkpred.py:190-246``): 1,000 uniform negative
    destinations for each of 8,192 valid positives, drawn from the script's
-   ``rng``; one encode, chunked ``predict_chunked`` in chunks of
-   512 x 1024 pairs, the grouped MRR of ``linkpred/metrics.py``, warm.
+   ``rng``; one encode, ``predict_chunked`` (one launch of the pair-scoring
+   kernel a split for this DOT model), the grouped MRR of
+   ``linkpred/metrics.py``, warm.
 
 The JSON line carries the original's keys, ``kernel_launches``, ``peak_gib``
 (over the run) and ``device``; unlike the original it writes no file.
@@ -45,7 +46,6 @@ import torch
 N_NODE, N_EDGE, N_FEAT = 2_927_963, 30_387_995 // 2, 128
 EVAL_POS, NUM_NEG_EVAL, OGB_NEG = 8192, 50, 1000
 TIMED_STEPS, TIMED_EPOCHS = 16, 4
-PREDICT_CHUNK = 512 * 1024
 
 _T0 = time.time()
 
@@ -192,8 +192,8 @@ def main(n_node=N_NODE, n_edge=N_EDGE, n_feat=N_FEAT, eval_pos=EVAL_POS,
         model.eval()
         with torch.no_grad():
             h = lpm.encode_all(model, const)
-            pos_s = lpm.predict_chunked(model, h, pos_t, chunk=PREDICT_CHUNK)
-            neg_s = lpm.predict_chunked(model, h, neg_t, chunk=PREDICT_CHUNK)
+            pos_s = lpm.predict_chunked(model, h, pos_t)
+            neg_s = lpm.predict_chunked(model, h, neg_t)
         return M.mrr(pos_s, neg_s.reshape(len(pos_eval), OGB_NEG))  # reads back
 
     ogb_eval()  # warm

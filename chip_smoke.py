@@ -81,22 +81,34 @@ Phases (any failure exits non-zero; nothing is caught):
    (``edge_attn_rows``, softmax and grad mode, on N(0, 1) operands) against
    its plain version there, within ``REL_TOL`` of the largest entry, two
    launches bit-identical, with its ms, the plain version's, the bound and
-   the share; (ii) the JAX package's bench
+   the share; the pair-scoring kernel (``pair_dot``, ``csrc/pair_score.cu``)
+   on the evaluation cell's valid split (86,596 positives, each source on
+   1,000 uniform negative destinations, over an N(0, 1) [2,927,963, 256]
+   table) against its plain version, within 1e-6 of the largest |score|,
+   two launches bit-identical, with its ms, the plain version's, the bound
+   (bytes: a destination row, 16 bytes of indices and a 4-byte score a
+   pair, a source row a run of pairs that share it) and the share;
+   (ii) the JAX package's bench
    config (SAGE + DOT, ``ce_loss``, features, no embedding, batch 65,536,
    3 negatives, ``pallas_bf16``) through ``train_linkpred``, 2 epochs of 8
    steps, the bf16 kernel launched exactly 1 + 2 per step + 1 per eval and
-   nothing else, a finite MRR; (iii) its 16-step epoch and the warm
-   1000-negative OGB eval, timed; (iv) the default ``LinkPredConfig()`` (a
-   trainable [n, 256] embedding, the f32 kernel 4 per step + 2 per eval);
+   the pair-scoring kernel 4 per eval (its ``mrr`` scores the valid and test
+   positives and negatives), nothing else, a finite MRR; (iii) its 16-step
+   epoch and the warm 1000-negative OGB eval (the pair-scoring kernel 2 an
+   eval), timed; (iv) the default ``LinkPredConfig()`` (a
+   trainable [n, 256] embedding, the f32 kernel 4 per step + 2 per eval,
+   and the pair-scoring kernel once a scored split: 5 an eval under its
+   ``recall_my@1.25``, which also scores the train positives);
    (v) one step of each at dropout 0 through the kernels against the plain
    versions, loss and every gradient within the larger of 1e-5 and 4x the
    plain step's own sum-order floor, the largest over three reorderings
    (the kernels sum in another order than the plain version, so no step is
    expected to be bit-identical); (vi) GCN (the f32 kernel) and the
    Transformer (B1 8 a step and 2 an eval encode, the attention rows'
-   kernels 4 a step and 2 an eval encode) at the bench shape; (vii)
-   ``--exp_mode=I2_GTL --task=linkp`` through ``main`` (the 2,000-node
-   stand-in, dense, no launch);
+   kernels 4 a step and 2 an eval encode; each the pair-scoring kernel 5 an
+   eval) at the bench shape; (vii) ``--exp_mode=I2_GTL --task=linkp``
+   through ``main`` (the 2,000-node stand-in, dense, no SpMM launch; the
+   pair-scoring kernel 5 an eval, 10 evals);
 8. the rest of the single-device CLI: (i) a full-size fake ogbn-arxiv raw
    set (169,343 nodes, 1,166,243 edges, 128 features, 40 classes) written to
    a directory under ``_chip/``, read through ``load_dataset`` (the reader
@@ -231,7 +243,8 @@ Phases (any failure exits non-zero; nothing is caught):
    on the edge graph at d = 1 and 512 with its ms, and the ms of a
    propagation; ``train_linkpred`` with each ``edge_lp_mode`` (1 step, the
    evaluation) on a 20,000-node split whose largest node is over the cap: a
-   finite MRR and exact launch counts. Phase 13's seconds are printed.
+   finite MRR and exact launch counts (the pair-scoring kernel's 5 an eval
+   among them). Phase 13's seconds are printed.
 14. the bespoke sharded teachers (``parallel/distributed.py``,
    ``parallel/tensor_parallel.py``) on phase 3's slice at its widths
    (128 -> 256 -> 40, SE on layer 0), padded as the JAX package pads
@@ -277,7 +290,8 @@ Phases (any failure exits non-zero; nothing is caught):
    LP cell must carry a non-empty ``host_top`` (its host attribution under
    cProfile) whose shares lie in [0, 1]. Phase 16's seconds are printed.
 
-Prints the kernels' JSON line (launches summed over every phase; phase 7's
+Prints the kernels' JSON line (launches summed over the runs each phase
+holds to an expected count, not the kernel-against-plain checks'; phase 7's
 numbers under ``linkpred``, phase 8's under ``cli``, phase 9's under
 ``baselines``, phase 10's under ``sharded``, phase 11's under
 ``sharded_students``, phase 12's under ``hier`` and ``mesh_2d``, phase
@@ -308,8 +322,12 @@ KERNELS = {  # wrapper -> (what it replaces in the JAX package, its source)
     "spmm_csr_bf16": ("gnn_tail_generalization_tpu/ops/spmm_pallas.py:389", SPMM_SOURCE),
     "edge_attn_rows_f32": ("plain XLA: gnn_tail_generalization_tpu/linkpred/encoders.py",
                            "gnn_tail_generalization_tpu_torch/csrc/edge_attention.cu"),
+    "pair_dot_f32": ("plain XLA: gnn_tail_generalization_tpu/linkpred/model.py:508-522",
+                     "gnn_tail_generalization_tpu_torch/csrc/pair_score.cu"),
 }
 ATTN_D = 256  # the link Transformer's width
+PAIR_D, C2_VALID = 256, 86_596  # the evaluation cell's table width and valid positives
+SCORED_RECALL = 5  # splits an eval scores where the train positives are scored too
 SLICE_ARGS = ["--dataset=ogbn-arxiv", "--train_which=TeacherGNN", "--epochs=3",
               "--device=cuda", "--log_every=1"]
 # '111': under the Initial trick every conv takes SE flag [1]
@@ -849,6 +867,57 @@ def check_attn_rows(g, gen: torch.Generator, card_name: str) -> dict:
             "max_rel_err": max(r["rel_err"] for r in res.values()), **res}
 
 
+def check_pair_dot(card_name: str, dev) -> dict:
+    """Phase 7 (i): the pair-scoring kernel (``pair_dot`` on the card,
+    ``csrc/pair_score.cu``) against its plain version on the evaluation
+    cell's valid split, positives and negatives: within 1e-6 of the largest
+    |score|, two launches bit-identical. Each part's kernel and plain ms
+    beside the bound (bytes: a destination row, 16 bytes of indices and a
+    4-byte score a pair, a source row a run of pairs that share it; or
+    2 d operations a pair)."""
+    from gnn_tail_generalization_tpu_torch.ops import pair_score as PS
+    from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    h = torch.randn(C2_NODES, PAIR_D, generator=gen, device=dev)
+    pos = torch.randint(0, C2_NODES, (C2_VALID, 2), generator=gen, device=dev)
+    dst = torch.randint(0, C2_NODES, (C2_VALID * OGB_NEG,), generator=gen, device=dev)
+    neg = torch.stack([pos[:, 0].repeat_interleave(OGB_NEG), dst], dim=1)
+    del dst
+    res = {}
+    for tag, pairs in (("positives", pos), ("negatives", neg)):
+        got, again, want = PS.pair_dot(h, pairs), PS.pair_dot(h, pairs), PS.pair_dot_plain(h, pairs)
+        abs_err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        same = same_bits(got, again)
+        del got, again, want
+        ms = median_ms(lambda: PS.pair_dot(h, pairs), reps=10, warmup=2)
+        plain_ms = median_ms(lambda: PS.pair_dot_plain(h, pairs), reps=3, warmup=1)
+        m = pairs.shape[0]
+        runs = 1 + int((pairs[1:, 0] != pairs[:-1, 0]).sum())
+        nbytes = m * (PAIR_D * 4 + 16 + 4) + runs * PAIR_D * 4
+        t_bytes = nbytes / K.HBM_BYTES_PER_S * 1e3
+        t_ops = 2 * m * PAIR_D / K.F32_FLOPS * 1e3
+        bound_ms, bound_by = max((t_bytes, "bytes"), (t_ops, "ops"))
+        log(f"  pair_dot_f32 valid {tag:9s} {m} pairs, {runs} source runs, d={PAIR_D} "
+            f"max_abs_err={abs_err:.3e} (largest |score| {scale:.3e}) two launches "
+            f"bit-identical: {same} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"bound_ms={bound_ms:.4f} ({bound_by}) share={bound_ms / ms:.3f} [{card_name}]")
+        assert abs_err <= 1e-6 * scale, f"pair_dot_f32 {tag}: {abs_err} > 1e-6 x {scale}"
+        assert same, f"pair_dot_f32 {tag}: two launches differ"
+        res[tag] = {"pairs": m, "source_runs": runs, "max_abs_err": abs_err,
+                    "rel_err": abs_err / scale, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by, "share_of_bound": bound_ms / ms}
+    both = {k: sum(r[k] for r in res.values()) for k in ("ms", "plain_ms", "bound_ms")}
+    log(f"  pair_dot_f32 valid split: kernel_ms={both['ms']:.4f} plain_ms="
+        f"{both['plain_ms']:.4f} bound_ms={both['bound_ms']:.4f} share="
+        f"{both['bound_ms'] / both['ms']:.3f} [{card_name}]")
+    return {"max_abs_err": max(r["max_abs_err"] for r in res.values()),
+            "max_rel_err": max(r["rel_err"] for r in res.values()), **both,
+            "bound_by": res["negatives"]["bound_by"],
+            "share_of_bound": both["bound_ms"] / both["ms"], **res}
+
+
 def replace_launches(cfg, pd, epochs: int) -> int:
     """The top-K kernel's launches in ``epochs`` part-2 epochs: one a row
     chunk (8,192 rows, ``latent_neighbor_replace``'s) of each replacement:
@@ -1144,13 +1213,15 @@ def lp_parity(cfg, g, reorderings, x, train_edges, tag) -> dict:
     return {k: {"rel": r, "floor": f} for k, (r, f) in rows.items()}
 
 
-def lp_timed(cfg, g, x, split_edge, msg, card_name) -> dict:
+def lp_timed(cfg, g, x, split_edge, msg, card_name, totals) -> dict:
     """The bench config's TIMED_STEPS-step epoch (best of 2 after a warm-up)
     and the warm OGB-style eval: EVAL_POS positives x OGB_NEG uniform
-    destinations, one encode, chunked scoring, grouped MRR."""
+    destinations, one encode, the pair-scoring kernel once a split (held to
+    2 launches an eval and added to ``totals``), grouped MRR."""
     from gnn_tail_generalization_tpu_torch.linkpred import metrics as M
     from gnn_tail_generalization_tpu_torch.linkpred import model as lpm
     from gnn_tail_generalization_tpu_torch.linkpred import sampling
+    from gnn_tail_generalization_tpu_torch.ops import pair_score as PS
 
     dev, n, bsz = x.device, g.n_node, cfg.batch_size
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -1185,10 +1256,11 @@ def lp_timed(cfg, g, x, split_edge, msg, card_name) -> dict:
         model.eval()
         with torch.no_grad():
             h = lpm.encode_all(model, const)
-            pos_s = lpm.predict_chunked(model, h, val, chunk=512 * 1024)
-            neg_s = lpm.predict_chunked(model, h, neg, chunk=512 * 1024)
+            pos_s = lpm.predict_chunked(model, h, val)
+            neg_s = lpm.predict_chunked(model, h, neg)
         return M.mrr(pos_s, neg_s.reshape(EVAL_POS, OGB_NEG))  # reads back
 
+    PS.reset_launch_counts()
     ogb_eval()
     eval_s = []
     for _ in range(2):
@@ -1196,6 +1268,8 @@ def lp_timed(cfg, g, x, split_edge, msg, card_name) -> dict:
         mrr = ogb_eval()
         eval_s.append(time.perf_counter() - t0)
     assert np.isfinite(mrr), mrr
+    assert PS.LAUNCHES == {"pair_dot_f32": 2 * 3}, PS.LAUNCHES
+    totals["pair_dot_f32"] += PS.LAUNCHES["pair_dot_f32"]
     log(f"  OGB eval: {EVAL_POS} positives x {OGB_NEG} destinations, MRR={mrr:.4f}, "
         f"warm s {[round(s, 4) for s in eval_s]} [{card_name}]")
     return {"epoch_s": epoch_s, "step_ms": best / TIMED_STEPS * 1e3,
@@ -1204,18 +1278,20 @@ def lp_timed(cfg, g, x, split_edge, msg, card_name) -> dict:
 
 def run_linkpred(cfg, x, split_edge, msg, n_node, expect, tag, card_name,
                  totals, dev, **kw) -> dict:
-    """``train_linkpred`` on the card with the launch counts reset before and
-    read after; fails unless they equal ``expect`` and every loss and
-    statistic is finite."""
+    """``train_linkpred`` on the card with the SpMM and pair-scoring launch
+    counts reset before and read after; fails unless they equal ``expect``
+    and every loss and statistic is finite."""
     from gnn_tail_generalization_tpu_torch.linkpred import model as lpm
+    from gnn_tail_generalization_tpu_torch.ops import pair_score as PS
     from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
 
-    expect = {k: expect.get(k, 0) for k in K.LAUNCHES}
+    expect = {k: expect.get(k, 0) for k in (*K.LAUNCHES, *PS.LAUNCHES)}
     torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
+    PS.reset_launch_counts()
     out = lpm.train_linkpred(cfg, x, msg, n_node, split_edge=split_edge,
                              msg_edges=msg, log_every=1, device=dev, **kw)
-    counts = dict(K.LAUNCHES)
+    counts = {**K.LAUNCHES, **PS.LAUNCHES}
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     log(f"  {tag}: launches {counts}, epoch s {[round(s, 4) for s in out['epoch_s']]}, "
         f"losses {out['epoch_loss']}, {out['last_results']}, peak {peak_gb:.2f} GiB "
@@ -1237,6 +1313,7 @@ def linkpred_phase(card_name: str, totals: dict, dev) -> tuple:
     from gnn_tail_generalization_tpu_torch import main as port_main
     from gnn_tail_generalization_tpu_torch.linkpred import model as lpm
     from gnn_tail_generalization_tpu_torch.ops import edge_attention as EA
+    from gnn_tail_generalization_tpu_torch.ops import pair_score as PS
     from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
 
     t_phase = time.perf_counter()
@@ -1268,26 +1345,36 @@ def linkpred_phase(card_name: str, totals: dict, dev) -> tuple:
     log(f"  (i) the attention rows' kernel against the plain version, d={ATTN_D}")
     attn_rows = check_attn_rows(g, gen, card_name)
     torch.cuda.empty_cache()
+    log(f"  (i) the pair-scoring kernel against the plain version, d={PAIR_D}")
+    pair_dot = check_pair_dot(card_name, dev)
+    torch.cuda.empty_cache()
 
     x = torch.randn(C2_NODES, C2_FEATS, generator=gen, device=dev)
     steps = 2 * 8
     log("  (ii) the bench config through train_linkpred: 2 epochs of 8 steps")
     # bf16 launches: 1 hoisted layer-1 aggregation, 2 per train step (layer-2
-    # forward and its transposed backward), 1 per eval encode (layer 2)
+    # forward and its transposed backward), 1 per eval encode (layer 2); the
+    # pair-scoring kernel once a split the eval scores (mrr: valid and test
+    # positives and negatives)
     bench_run = run_linkpred(
-        bench, x, split_edge, msg, C2_NODES, {"spmm_csr_bf16": 1 + 2 * steps + 1},
+        bench, x, split_edge, msg, C2_NODES,
+        {"spmm_csr_bf16": 1 + 2 * steps + 1, "pair_dot_f32": 4},
         "bench config", card_name, totals, dev, epochs=2, eval_steps=2,
         max_steps_per_epoch=8)
     assert np.isfinite(bench_run["results"]["MRR"]).all()
     log("  (iii) the bench config's timed epoch and OGB-style eval")
-    timed = lp_timed(bench, g, x, split_edge, msg, card_name)
+    timed = lp_timed(bench, g, x, split_edge, msg, card_name, totals)
     torch.cuda.empty_cache()
 
     log("  (iv) LinkPredConfig() through train_linkpred: 2 epochs of 8 steps")
     # f32 launches: per step the layer-1 and layer-2 forwards and both
-    # transposed backwards (the embedding trains), 2 per eval encode
+    # transposed backwards (the embedding trains), 2 per eval encode; the
+    # pair-scoring kernel once a split the eval scores: under the default
+    # recall_my@1.25 the valid and test positives and negatives and the
+    # train positives
     default_run = run_linkpred(
-        default, None, split_edge, msg, C2_NODES, {"spmm_csr_f32": 4 * steps + 2},
+        default, None, split_edge, msg, C2_NODES,
+        {"spmm_csr_f32": 4 * steps + 2, "pair_dot_f32": SCORED_RECALL},
         "default config", card_name, totals, dev, epochs=2, eval_steps=2,
         max_steps_per_epoch=8)
     torch.cuda.empty_cache()
@@ -1309,9 +1396,12 @@ def linkpred_phase(card_name: str, totals: dict, dev) -> tuple:
     others = {}
     # the Transformer a step: B1 once a layer forward (A_alpha v) and three
     # times backward (dv, dq, dk), the attention rows' kernels once a layer
-    # each way; the eval encode the forward of both layers
-    for kind, expect, attn in (("GCN", {"spmm_csr_f32": 2 * 4 + 2}, 0),
-                               ("Transformer", {"spmm_csr_f32": 2 * 8 + 2}, 2 * 4 + 2)):
+    # each way; the eval encode the forward of both layers; the one eval's
+    # five scored splits (recall_my) a pair-scoring launch each
+    for kind, expect, attn in (
+            ("GCN", {"spmm_csr_f32": 2 * 4 + 2, "pair_dot_f32": SCORED_RECALL}, 0),
+            ("Transformer", {"spmm_csr_f32": 2 * 8 + 2, "pair_dot_f32": SCORED_RECALL},
+             2 * 4 + 2)):
         EA.reset_launch_counts()
         others[kind] = run_linkpred(
             lpm.LinkPredConfig(encoder=kind), None, split_b, msg_b, BENCH_NODES,
@@ -1323,15 +1413,19 @@ def linkpred_phase(card_name: str, totals: dict, dev) -> tuple:
 
     log("  (vii) --exp_mode=I2_GTL through the port's main (2,000-node stand-in)")
     K.reset_launch_counts()
+    PS.reset_launch_counts()
     cli = port_main.main(I2GTL_ARGS)[0]
     assert not any(K.LAUNCHES.values()), K.LAUNCHES  # the dense product
+    # 2 runs of 5 epochs, an eval an epoch, its five splits a launch each
+    assert PS.LAUNCHES == {"pair_dot_f32": 2 * 5 * SCORED_RECALL}, PS.LAUNCHES
+    totals["pair_dot_f32"] += PS.LAUNCHES["pair_dot_f32"]
     assert all(np.isfinite(v) for v in cli.values()), cli
     phase_s = time.perf_counter() - t_phase
     log(f"  phase 7: {phase_s:.1f} s")
 
     return {"phase_s": phase_s, "n_node": C2_NODES, "n_msg_edges": g.n_edge, "max_in_degree": max_in,
             "host_build_s": {"split": split_s, "csr_pair": csr_s},
-            "kernels_d256": kernel_ms, "attn_rows": attn_rows,
+            "kernels_d256": kernel_ms, "attn_rows": attn_rows, "pair_dot": pair_dot,
             "bench": {**bench_run, "step_ms": bench_run["epoch_s"][1] / 8 * 1e3},
             "bench_timed": timed,
             "default": {**default_run,
@@ -3055,6 +3149,7 @@ def edge_lp_phase(scored, eb, card_name, totals, dev) -> dict:
     edge graph timed, and evaluate with each mode."""
     from gnn_tail_generalization_tpu_torch.linkpred import edge_lp as elp
     from gnn_tail_generalization_tpu_torch.linkpred import model as lpm
+    from gnn_tail_generalization_tpu_torch.ops import pair_score as PS
     from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
 
     out = {}
@@ -3111,14 +3206,17 @@ def edge_lp_phase(scored, eb, card_name, totals, dev) -> dict:
     for mode in ("logit", "emb", "xmc"):
         cfg = lpm.LinkPredConfig(edge_lp_mode=mode, eval_metric="mrr")
         # f32: 4 a step and 2 an eval encode (phase 7 (iv)), then the
-        # propagations: one a column block of 128 in xmc mode
+        # propagations: one a column block of 128 in xmc mode; the pair-scoring
+        # kernel once a split, five (the train positives guide the propagation)
         elp_n = ELP_PROPS * (xmc_blocks(all_edges, ELP_SPLIT_NODES) if mode == "xmc" else 1)
         expect = {k: (4 + 2 + elp_n if k == "spmm_csr_f32" else 0) for k in K.LAUNCHES}
+        expect["pair_dot_f32"] = SCORED_RECALL
         K.reset_launch_counts()
+        PS.reset_launch_counts()
         run = lpm.train_linkpred(cfg, None, msg_s, ELP_SPLIT_NODES, epochs=1,
                                  split_edge=split, msg_edges=msg_s, max_steps_per_epoch=1,
                                  device=dev)
-        counts = dict(K.LAUNCHES)
+        counts = {**K.LAUNCHES, **PS.LAUNCHES}
         mrr = run["last_results"]["MRR"]
         log(f"      {mode}: MRR {mrr}, launches {counts} [{card_name}]")
         assert np.isfinite(mrr).all(), (mode, mrr)
@@ -3598,6 +3696,7 @@ def main() -> int:
         build_graph, standard_pipeline)
     from gnn_tail_generalization_tpu_torch.ops import _build
     from gnn_tail_generalization_tpu_torch.ops import edge_attention as EA
+    from gnn_tail_generalization_tpu_torch.ops import pair_score as PS
     from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
     from gnn_tail_generalization_tpu_torch.train.loops import final_agg_view
     from gnn_tail_generalization_tpu_torch.utils.device import card
@@ -3685,6 +3784,7 @@ def main() -> int:
     launches, step_ms = {}, {}
     totals = {k: 0 for k in K.LAUNCHES}  # launches over every phase
     totals.update({k: 0 for k in EA.LAUNCHES})
+    totals.update({k: 0 for k in PS.LAUNCHES})
     for method, kernel in (("auto", "spmm_csr_f32"),
                            ("pallas_bf16", "spmm_csr_bf16")):
         K.reset_launch_counts()
@@ -3754,6 +3854,8 @@ def main() -> int:
 
     assert totals["spmm_csr_plain"] == 0 and totals["edge_attn_rows_plain"] == 0, totals
     stats["edge_attn_rows_f32"].update(linkpred["attn_rows"])
+    stats["pair_dot_f32"].update({k: v for k, v in linkpred["pair_dot"].items()
+                                  if k not in ("positives", "negatives")})
     kernels = [{"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": totals[name], **stats[name]}
                for name, (replaces, source) in KERNELS.items()]

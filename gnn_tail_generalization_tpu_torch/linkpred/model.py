@@ -56,7 +56,7 @@ from . import losses as L
 from . import metrics as M
 from . import sampling
 from .encoders import GNNEncoder, hoistable, hoisted_first_agg
-from .predictors import create_predictor
+from .predictors import create_predictor, takes_pairs
 
 
 @dataclass(frozen=True)
@@ -633,11 +633,17 @@ def encode_all(model: LinkPredModel, const) -> torch.Tensor:
 def predict_chunked(model: LinkPredModel, h: torch.Tensor, edges,
                     chunk: int = 64 * 1024, g=None) -> torch.Tensor:
     """batch_predict (model.py:172-185): the scores of ``edges`` [m, 2] (a
-    numpy array or a tensor) in chunks of ``chunk`` pairs, so no [m, d]
-    endpoint gather is materialised at once. ``g``: the graph ``h`` was
-    encoded on (``take_rows``)."""
+    numpy array or a tensor). ``g``: the graph ``h`` was encoded on
+    (``take_rows``). Where the predictor takes the pairs
+    (``predictors.py:takes_pairs``: DOT over an f32 table) and ``h`` is the
+    whole table, the split is scored in one forward (one kernel launch on
+    the card) and ``chunk`` is not used; any other predictor, or a rank's
+    rows of a sharded graph, in chunks of ``chunk`` pairs, so no [m, d]
+    endpoint gather is materialised at once."""
     with debug.span("gnn.link.score"):
         edges = torch.as_tensor(edges, device=h.device).long()
+        if takes_pairs(model.predictor, h) and not isinstance(g, ShardedGraph):
+            return model.predictor(h, edges.contiguous())
         outs = [model.predict_pairs(take_rows(g, h, e[:, 0]), take_rows(g, h, e[:, 1]))
                 for e in torch.split(edges, chunk)]
         return torch.cat(outs) if outs else h.new_zeros(0)

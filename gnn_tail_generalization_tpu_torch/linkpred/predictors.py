@@ -18,11 +18,27 @@ from torch import nn
 
 from ..nn.dropout import dropout as _dropout
 from ..nn.mlp import dense_layer
+from ..ops import pair_score
 
 
 class DotPredictor(nn.Module):
+    """sum(x_i * x_j). Given an int64 [m, 2] tensor of pairs as ``x_j``,
+    ``x_i`` is the encoded table and the scores are those of its rows
+    (source, destination) in one call (``ops/pair_score.py:pair_dot``: the
+    kernel on the card), so a forward hook sees a whole split's scores.
+    ``takes_pairs`` says when a caller may pass the pairs."""
+
     def forward(self, x_i, x_j, *, generator=None):
+        if x_j.dtype == torch.int64:
+            return pair_score.pair_dot(x_i, x_j)
         return torch.sum(x_i * x_j, dim=-1)
+
+
+def takes_pairs(predictor: nn.Module, h: torch.Tensor) -> bool:
+    """Whether ``predictor(h, pairs)`` scores int64 pairs [m, 2] of the whole
+    table ``h`` in one forward: a ``DotPredictor`` (no subclass, no other
+    predictor) over a float32 table, the one the kernel takes."""
+    return type(predictor) is DotPredictor and h.dtype == torch.float32
 
 
 class BilinearPredictor(nn.Module):

@@ -68,8 +68,8 @@ def build() -> Path:
 
 def load() -> ctypes.CDLL:
     """The loaded kernel library (built first if needed), with typed entry
-    points ``spmm_csr_f32``, ``spmm_csr_bf16``, ``topk_rows_f32`` and
-    ``edge_attn_rows_f32``."""
+    points ``spmm_csr_f32``, ``spmm_csr_bf16``, ``topk_rows_f32``,
+    ``edge_attn_rows_f32`` and ``pair_dot_f32``."""
     global _lib
     if _lib is None:
         _lib = bind(ctypes.CDLL(str(build())))
@@ -94,4 +94,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.edge_attn_rows_f32.argtypes = [i, p, p, p, p, p, p, i, i, i, i, ctypes.c_float,
                                        p, p, i, p, i, i, p, p]
     lib.edge_attn_rows_f32.restype = i
+    # h, pairs, out, n, m, d, stream
+    ll = ctypes.c_longlong
+    lib.pair_dot_f32.argtypes = [p, p, p, ll, ll, i, p]
+    lib.pair_dot_f32.restype = i
     return lib

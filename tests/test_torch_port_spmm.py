@@ -173,8 +173,8 @@ def test_build_needs_nvcc_and_hashes_source(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "_build")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build()
-    assert [p.name for p in _build.sources()] == ["edge_attention.cu", "spmm_csr.cu",
-                                                  "topk_select.cu"]
+    assert [p.name for p in _build.sources()] == ["edge_attention.cu", "pair_score.cu",
+                                                  "spmm_csr.cu", "topk_select.cu"]
     p0 = _build.library_path()
     csrc = tmp_path / "csrc"
     csrc.mkdir()
