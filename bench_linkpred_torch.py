@@ -128,6 +128,7 @@ def main(n_node=N_NODE, n_edge=N_EDGE, n_feat=N_FEAT, eval_pos=EVAL_POS,
     from gnn_tail_generalization_tpu_torch.data.synthetic import fast_powerlaw_graph
     from gnn_tail_generalization_tpu_torch.linkpred import metrics as M
     from gnn_tail_generalization_tpu_torch.linkpred import model as lpm
+    from gnn_tail_generalization_tpu_torch.ops import _build
     from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
     from gnn_tail_generalization_tpu_torch.utils.device import device_info, resolve_device
 
@@ -174,9 +175,9 @@ def main(n_node=N_NODE, n_edge=N_EDGE, n_feat=N_FEAT, eval_pos=EVAL_POS,
         return t
 
     timed_epoch()  # warm
-    K.reset_launch_counts()
+    _build.reset_launch_counts()
     epoch_s = [timed_epoch() for _ in range(TIMED_EPOCHS)]
-    launches = dict(K.LAUNCHES)
+    launches = _build.launch_counts("spmm_csr")
     warm_epoch = min(epoch_s)
     step_ms = warm_epoch / TIMED_STEPS * 1e3
     bf16 = cfg.spmm_method == "pallas_bf16" and g.has_plans

@@ -210,13 +210,13 @@ def time_step(step, iters=TIMED_STEPS, windows=WINDOWS):
     steps, after ``iters`` warm-up steps; every window starts and ends in
     ``torch.cuda.synchronize()`` (host clock). The SpMM wrappers' launch
     counts are reset after the warm-up, so they hold the windows' launches."""
-    from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
+    from gnn_tail_generalization_tpu_torch.ops import _build
 
     for _ in range(iters):
         loss = step()
     if not torch.isfinite(loss):
         raise RuntimeError(f"non-finite loss after the warm-up: {loss.item()}")
-    K.reset_launch_counts()
+    _build.reset_launch_counts()
     out = []
     for _ in range(windows):
         torch.cuda.synchronize()
@@ -291,7 +291,7 @@ def run_dist():
     """``--dist``: the numerics check, then the sharded step timed. Prints
     one JSON line; exits 1 when the rel diff reaches DIST_REL_TOL."""
     from gnn_tail_generalization_tpu_torch.data.datasets import prepare_sharded
-    from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
+    from gnn_tail_generalization_tpu_torch.ops import _build
     from gnn_tail_generalization_tpu_torch.parallel.comm import Comm
     from gnn_tail_generalization_tpu_torch.utils.device import resolve_device
 
@@ -305,7 +305,7 @@ def run_dist():
     _log(f"dist workload built: n_pad={pd_d.graph.n_node_pad}")
     step, _ = make_framework_step(cfg, pd_d, device)
     windows = time_step(step)
-    launches = dict(K.LAUNCHES)
+    launches = _build.launch_counts("spmm_csr")
     t = min(windows)
     n_edges = pd_d.edge_index.shape[1]
     _log(f"dist step: {t * 1e3:.3f} ms (numerics rel diff {rel_max:.3e})")
@@ -336,6 +336,7 @@ def dist_fields() -> dict:
 
 
 def main():
+    from gnn_tail_generalization_tpu_torch.ops import _build
     from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
     from gnn_tail_generalization_tpu_torch.utils.device import device_info, resolve_device
 
@@ -349,7 +350,7 @@ def main():
     fw_step, model = make_framework_step(cfg, pd, device)
     torch.cuda.reset_peak_memory_stats()
     windows = time_step(fw_step)
-    launches = dict(K.LAUNCHES)
+    launches = _build.launch_counts("spmm_csr")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     t_fw = min(windows)
     _log(f"framework: {[round(w * 1e3, 3) for w in windows]} ms/step, "

@@ -26,8 +26,11 @@ Phases (any failure exits non-zero; nothing is caught):
    runs; ``library_ms`` is ``torch.sparse.mm`` of a CSR tensor, cuSPARSE,
    which the port never calls), ``bound_ms``
    (``ops/spmm_kernels.py:spmm_bound``) and the kernel's share of it. Two
-   launches on the bench graph must be bit-identical, and a call without a
-   schedule (built from ``indptr``) must equal one with;
+   launches must be bit-identical in every case, and a call without a
+   schedule (built from ``indptr``) must equal one with. Every check of a
+   kernel against its plain version (here, phase 4 (ii)'s and phase 7
+   (i)'s) shares ``kernel_vs_plain``'s steps, and every launch count is
+   ``ops/_build.py:LAUNCHES``, reset before each run it counts;
 3. the slice: the port's ``main`` on ogbn-arxiv's shape (synthetic stand-in,
    169,343 nodes, 128 features, hidden 256, 40 classes), 3 epochs, once with
    ``--spmm_method=auto`` (f32 kernel) and once with ``pallas_bf16`` (bf16
@@ -315,6 +318,8 @@ import time
 import numpy as np
 import torch
 
+from gnn_tail_generalization_tpu_torch.ops import _build
+
 REL_TOL = 1e-5
 SPMM_SOURCE = "gnn_tail_generalization_tpu_torch/csrc/spmm_csr.cu"
 KERNELS = {  # wrapper -> (what it replaces in the JAX package, its source)
@@ -465,32 +470,73 @@ def library_fn(g, x, bf16: bool):
     return lambda: torch.sparse.mm(a, xx)
 
 
+def same_bits(a, b) -> bool:
+    """Whether two outputs, each a tensor of 4- or 8-byte elements or a tuple
+    of them, are equal bit for bit."""
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(same_bits(x, y) for x, y in zip(a, b))
+    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def bound(nbytes: float, flops: float = 0.0) -> tuple:
+    """(ms, what bounds it): the least time an H100 could take to move
+    ``nbytes`` over HBM or do ``flops`` f32 operations, the larger of the
+    two."""
+    from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
+
+    return max((nbytes / K.HBM_BYTES_PER_S * 1e3, "bytes"), (flops / K.F32_FLOPS * 1e3, "ops"))
+
+
+def kernel_vs_plain(kernel, plain, bound_ms: tuple, reps: int = 10,
+                    plain_reps: int = 3) -> dict:
+    """The steps every check of a kernel against its plain version shares:
+    ``kernel()`` twice and ``plain()`` once, of one shape; ``max_abs_err``,
+    max |kernel - plain| over the (first) output tensor, ``scale``, max
+    |plain|, and ``rel_err``, their ratio; ``same_plain``, the kernel's
+    output bit for bit the plain version's, and ``same``, the two launches';
+    the median ``ms`` of ``reps`` kernel calls (2 warm-ups) and ``plain_ms``
+    of ``plain_reps`` plain ones (1); ``bound_ms`` (ms, what bounds it) and
+    the kernel's share of it."""
+    got, again, want = kernel(), kernel(), plain()
+    g0, w0 = (got[0], want[0]) if isinstance(got, tuple) else (got, want)
+    assert g0.shape == w0.shape, (g0.shape, w0.shape)
+    abs_err, scale = (g0 - w0).abs().max().item(), w0.abs().max().item()
+    r = {"max_abs_err": abs_err, "scale": scale, "rel_err": abs_err / max(scale, 1e-30),
+         "dtype": str(g0.dtype), "same_plain": same_bits(got, want),
+         "same": same_bits(got, again)}
+    del got, again, want, g0, w0
+    r["ms"] = median_ms(kernel, reps=reps, warmup=2)
+    r["plain_ms"] = median_ms(plain, reps=plain_reps, warmup=1)
+    r["bound_ms"], r["bound_by"] = bound_ms
+    r["share_of_bound"] = r["bound_ms"] / r["ms"]
+    return r
+
+
+def kernel_line(r: dict) -> str:
+    """The log fields of ``kernel_vs_plain``'s result."""
+    return (f"max_abs_err={r['max_abs_err']:.3e} rel_err={r['rel_err']:.3e} two launches "
+            f"bit-identical: {r['same']} kernel_ms={r['ms']:.4f} plain_ms="
+            f"{r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
+            f"share={r['share_of_bound']:.3f}")
+
+
 def compare(name, fn, g, x, plain_bf16, card_name, tag, reps: int = 20) -> dict:
     """Kernel ``fn`` on ``g``'s CSR and row schedule against the plain
-    version: errors, kernel, plain and library ms, the bound and the
-    kernel's share of it. Fails when rel err > REL_TOL."""
+    version (``kernel_vs_plain``), with the library's ms and the SpMM bound.
+    Fails when rel err > REL_TOL or two launches differ."""
     from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
 
     args = (g.indptr, g.indices, g.weight, x)
-    y = fn(*args, schedule=g.schedule)
-    torch.cuda.synchronize()
-    y_ref = K.spmm_csr_plain(*args, bf16=plain_bf16)
-    assert y.shape == y_ref.shape and y.dtype == torch.float32, (y.shape, y.dtype)
-    abs_err = (y - y_ref).abs().max().item()
-    rel = abs_err / max(y_ref.abs().max().item(), 1e-30)
-    del y, y_ref
-    ms = median_ms(lambda: fn(*args, schedule=g.schedule), reps=reps)
-    plain_ms = median_ms(lambda: K.spmm_csr_plain(*args, bf16=plain_bf16), reps=reps)
-    library_ms = median_ms(library_fn(g, x, plain_bf16), reps=reps)
-    bound_ms, bound_by = K.spmm_bound(g, x.shape[1], plain_bf16)
-    log(f"  {name:14s} {tag:28s} d={x.shape[1]:3d} max_abs_err={abs_err:.3e} "
-        f"rel_err={rel:.3e} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-        f"library_ms={library_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}) "
-        f"share={bound_ms / ms:.3f} [{card_name}]")
-    assert rel <= REL_TOL, f"{name} {tag}: rel err {rel} > {REL_TOL}"
-    return {"max_abs_err": abs_err, "rel_err": rel, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "share_of_bound": bound_ms / ms}
+    r = kernel_vs_plain(lambda: fn(*args, schedule=g.schedule),
+                        lambda: K.spmm_csr_plain(*args, bf16=plain_bf16),
+                        K.spmm_bound(g, x.shape[1], plain_bf16), reps, reps)
+    r["library_ms"] = median_ms(library_fn(g, x, plain_bf16), reps=reps)
+    log(f"  {name:14s} {tag:28s} d={x.shape[1]:3d} {kernel_line(r)} "
+        f"library_ms={r['library_ms']:.4f} [{card_name}]")
+    assert r["dtype"] == "torch.float32", r["dtype"]
+    assert r["rel_err"] <= REL_TOL, f"{name} {tag}: rel err {r['rel_err']} > {REL_TOL}"
+    assert r["same"], f"{name} {tag}: two launches differ"
+    return r
 
 
 def hub_graph():
@@ -722,10 +768,6 @@ def check_replace(cfg, pd, res, card_name) -> dict:
             "topk_kernel": kernel}
 
 
-def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
-    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
-
-
 def topk_cases(chunk: torch.Tensor, gen: torch.Generator):
     """(name, scores, Ks) of the top-K kernel's card test beyond the arxiv
     chunk: its rows at every K; odd widths and unaligned row starts; exact
@@ -773,25 +815,20 @@ def check_topk_kernel(chunk: torch.Tensor, k: int, card_name: str) -> dict:
     [8192, 169,343] at the run's K, then ``topk_cases``. The kernel's, the
     plain version's and ``torch.topk``'s ms on the chunk, beside the bound
     (one read of the chunk over HBM's rate)."""
-    from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
     from gnn_tail_generalization_tpu_torch.ops.topk_kernels import (
         top_k_plain, topk_rows_f32)
 
     dev = chunk.device
-    got, want = topk_rows_f32(chunk, k), top_k_plain(chunk, k)
-    assert same_bits(got[0], want[0]) and torch.equal(got[1], want[1]), \
-        "the kernel differs from the plain version on the arxiv chunk"
-    again = topk_rows_f32(chunk, k)
-    assert same_bits(got[0], again[0]) and torch.equal(got[1], again[1])
-    del got, want, again
-    ms = median_ms(lambda: topk_rows_f32(chunk, k), reps=10, warmup=2)
-    plain_ms = median_ms(lambda: top_k_plain(chunk, k), reps=3, warmup=1)
-    library_ms = median_ms(lambda: torch.topk(chunk, k, dim=1), reps=5, warmup=1)
     n_rows, n_cols = chunk.shape
-    bound_ms = (n_rows * n_cols * 4 + n_rows * k * 12) / K.HBM_BYTES_PER_S * 1e3
+    r = kernel_vs_plain(lambda: topk_rows_f32(chunk, k), lambda: top_k_plain(chunk, k),
+                        bound(n_rows * n_cols * 4 + n_rows * k * 12))
+    assert r["same_plain"], "the kernel differs from the plain version on the arxiv chunk"
+    assert r["same"], "two launches differ on the arxiv chunk"
+    ms, bound_ms = r["ms"], r["bound_ms"]
+    library_ms = median_ms(lambda: torch.topk(chunk, k, dim=1), reps=5, warmup=1)
     log(f"  top-K kernel on the {tuple(chunk.shape)} chunk, K={k}: bit-equal to the plain "
         f"version; kernel {ms:.4f} ms, bound {bound_ms:.4f} ms (bytes), share "
-        f"{bound_ms / ms:.3f}, plain {plain_ms:.3f} ms, library_ms (torch.topk) "
+        f"{bound_ms / ms:.3f}, plain {r['plain_ms']:.3f} ms, library_ms (torch.topk) "
         f"{library_ms:.3f} ms [{card_name}]")
     cases = {}
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -813,8 +850,8 @@ def check_topk_kernel(chunk: torch.Tensor, k: int, card_name: str) -> dict:
     bad = [c for c, ok in cases.items() if not ok]
     assert not bad, f"the kernel differs from the plain version: {bad}"
     return {"shape": [n_rows, n_cols], "k": k, "ms": ms, "bound_ms": bound_ms,
-            "bound_by": "bytes", "share_of_bound": bound_ms / ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "cases": len(cases)}
+            "bound_by": r["bound_by"], "share_of_bound": bound_ms / ms,
+            "plain_ms": r["plain_ms"], "library_ms": library_ms, "cases": len(cases)}
 
 
 def check_attn_rows(g, gen: torch.Generator, card_name: str) -> dict:
@@ -827,7 +864,6 @@ def check_attn_rows(g, gen: torch.Generator, card_name: str) -> dict:
     operand's rows, each source row of the source operand once, indices,
     row pointers, the [E] scalars read and written; or 2 nnz d operations)."""
     from gnn_tail_generalization_tpu_torch.ops import edge_attention as EA
-    from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
 
     dev, d, scale = g.indptr.device, ATTN_D, ATTN_D ** -0.5
     q, k, v, d_out = (torch.randn(g.n_node, d, generator=gen, device=dev) for _ in range(4))
@@ -842,27 +878,13 @@ def check_attn_rows(g, gen: torch.Generator, card_name: str) -> dict:
 
         def plain():
             return EA.edge_attn_rows_plain(mode, g.indptr, g.indices, a, b, scale, al)
-        got, again, want = kernel(), kernel(), plain()
-        abs_err = (got - want).abs().max().item()
-        rel = abs_err / max(want.abs().max().item(), 1e-30)
-        same = same_bits(got, again)
-        del got, again, want
-        ms = median_ms(kernel, reps=10, warmup=2)
-        plain_ms = median_ms(plain, reps=3, warmup=1)
         nbytes = ((n_dst + n_src) * d * 4 + g.n_edge * 4 + (g.n_node + 1) * 4
                   + g.n_edge * 4 * (2 if mode == "grad" else 1))
-        t_bytes = nbytes / K.HBM_BYTES_PER_S * 1e3
-        t_ops = 2 * g.n_edge * d / K.F32_FLOPS * 1e3
-        bound_ms, bound_by = max((t_bytes, "bytes"), (t_ops, "ops"))
-        log(f"  edge_attn_rows {mode:7s} citation2 d={d} max_abs_err={abs_err:.3e} "
-            f"rel_err={rel:.3e} two launches bit-identical: {same} kernel_ms={ms:.4f} "
-            f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}) "
-            f"share={bound_ms / ms:.3f} [{card_name}]")
-        assert rel <= REL_TOL, f"edge_attn_rows {mode}: rel err {rel} > {REL_TOL}"
-        assert same, f"edge_attn_rows {mode}: two launches differ"
-        res[mode] = {"max_abs_err": abs_err, "rel_err": rel, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": bound_ms, "bound_by": bound_by,
-                     "share_of_bound": bound_ms / ms}
+        r = kernel_vs_plain(kernel, plain, bound(nbytes, 2 * g.n_edge * d))
+        log(f"  edge_attn_rows {mode:7s} citation2 d={d} {kernel_line(r)} [{card_name}]")
+        assert r["rel_err"] <= REL_TOL, f"edge_attn_rows {mode}: rel err {r['rel_err']} > {REL_TOL}"
+        assert r["same"], f"edge_attn_rows {mode}: two launches differ"
+        res[mode] = r
     return {"max_abs_err": max(r["max_abs_err"] for r in res.values()),
             "max_rel_err": max(r["rel_err"] for r in res.values()), **res}
 
@@ -876,7 +898,6 @@ def check_pair_dot(card_name: str, dev) -> dict:
     4-byte score a pair, a source row a run of pairs that share it; or
     2 d operations a pair)."""
     from gnn_tail_generalization_tpu_torch.ops import pair_score as PS
-    from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
 
     gen = torch.Generator(device=dev).manual_seed(5)
     h = torch.randn(C2_NODES, PAIR_D, generator=gen, device=dev)
@@ -886,28 +907,17 @@ def check_pair_dot(card_name: str, dev) -> dict:
     del dst
     res = {}
     for tag, pairs in (("positives", pos), ("negatives", neg)):
-        got, again, want = PS.pair_dot(h, pairs), PS.pair_dot(h, pairs), PS.pair_dot_plain(h, pairs)
-        abs_err = (got - want).abs().max().item()
-        scale = want.abs().max().item()
-        same = same_bits(got, again)
-        del got, again, want
-        ms = median_ms(lambda: PS.pair_dot(h, pairs), reps=10, warmup=2)
-        plain_ms = median_ms(lambda: PS.pair_dot_plain(h, pairs), reps=3, warmup=1)
         m = pairs.shape[0]
         runs = 1 + int((pairs[1:, 0] != pairs[:-1, 0]).sum())
-        nbytes = m * (PAIR_D * 4 + 16 + 4) + runs * PAIR_D * 4
-        t_bytes = nbytes / K.HBM_BYTES_PER_S * 1e3
-        t_ops = 2 * m * PAIR_D / K.F32_FLOPS * 1e3
-        bound_ms, bound_by = max((t_bytes, "bytes"), (t_ops, "ops"))
+        r = kernel_vs_plain(lambda: PS.pair_dot(h, pairs), lambda: PS.pair_dot_plain(h, pairs),
+                            bound(m * (PAIR_D * 4 + 16 + 4) + runs * PAIR_D * 4,
+                                  2 * m * PAIR_D))
+        abs_err, scale = r["max_abs_err"], r["scale"]
         log(f"  pair_dot_f32 valid {tag:9s} {m} pairs, {runs} source runs, d={PAIR_D} "
-            f"max_abs_err={abs_err:.3e} (largest |score| {scale:.3e}) two launches "
-            f"bit-identical: {same} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-            f"bound_ms={bound_ms:.4f} ({bound_by}) share={bound_ms / ms:.3f} [{card_name}]")
+            f"{kernel_line(r)} (largest |score| {scale:.3e}) [{card_name}]")
         assert abs_err <= 1e-6 * scale, f"pair_dot_f32 {tag}: {abs_err} > 1e-6 x {scale}"
-        assert same, f"pair_dot_f32 {tag}: two launches differ"
-        res[tag] = {"pairs": m, "source_runs": runs, "max_abs_err": abs_err,
-                    "rel_err": abs_err / scale, "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": bound_ms, "bound_by": bound_by, "share_of_bound": bound_ms / ms}
+        assert r["same"], f"pair_dot_f32 {tag}: two launches differ"
+        res[tag] = {"pairs": m, "source_runs": runs, **r}
     both = {k: sum(r[k] for r in res.values()) for k in ("ms", "plain_ms", "bound_ms")}
     log(f"  pair_dot_f32 valid split: kernel_ms={both['ms']:.4f} plain_ms="
         f"{both['plain_ms']:.4f} bound_ms={both['bound_ms']:.4f} share="
@@ -937,15 +947,12 @@ def student_phase(pd, teacher_launches: int, card_name: str,
     """Phase 4: the Cold Brew student on the card."""
     from gnn_tail_generalization_tpu_torch import main as port_main
     from gnn_tail_generalization_tpu_torch.config import build_config
-    from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
-    from gnn_tail_generalization_tpu_torch.ops import topk_kernels as TK
 
     log("  (i) SEMLP through the port's main")
-    K.reset_launch_counts()
-    TK.reset_launch_counts()
+    _build.reset_launch_counts()
     res = port_main.main(SEMLP_ARGS)[0]
-    counts = dict(K.LAUNCHES)
-    log(f"  launch counts over the SEMLP run: {counts}, {TK.LAUNCHES}")
+    counts = _build.launch_counts("spmm_csr")
+    log(f"  launch counts over the SEMLP run: {counts}, {_build.launch_counts('topk')}")
     cfg = port_main.fitted_to(
         build_config(**port_main.parse_args(SEMLP_ARGS)[0]), pd)
     # the teacher's steps as in phase 3, plus the SE-table forward
@@ -953,7 +960,7 @@ def student_phase(pd, teacher_launches: int, card_name: str,
               "spmm_csr_bf16": 0, "spmm_csr_plain": 0}
     assert counts == expect, f"SEMLP launched {counts}, expected {expect}"
     topk_expect = replace_launches(cfg, pd, 3)
-    assert TK.LAUNCHES["topk_rows_f32"] == topk_expect, (TK.LAUNCHES, topk_expect)
+    assert _build.LAUNCHES["topk_rows_f32"] == topk_expect, (_build.LAUNCHES, topk_expect)
     for k, v in counts.items():
         totals[k] += v
     phases = {"teacher": res.extra["teacher"], "part1": res.extra["part1"],
@@ -967,9 +974,9 @@ def student_phase(pd, teacher_launches: int, card_name: str,
 
     log("  (iii) StudentBaseMLP (arxiv shape) and GraphMLP (Cora stand-in)")
     for argv in STUDENT_RUNS:
-        K.reset_launch_counts()
+        _build.reset_launch_counts()
         r = port_main.main(argv)[0]
-        counts = dict(K.LAUNCHES)
+        counts = _build.launch_counts("spmm_csr")
         log(f"  {argv[1]}: launch counts {counts}, step_ms {r.step_ms}, "
             f"eval_ms {r.eval_ms} [{card_name}]")
         assert not any(counts.values()), f"{argv[1]} launched {counts}"
@@ -1001,15 +1008,14 @@ def trick_phase(pd, card_name: str, totals: dict) -> dict:
     """Phase 5: the trick zoo through the port's main."""
     from gnn_tail_generalization_tpu_torch import main as port_main
     from gnn_tail_generalization_tpu_torch.config import build_config
-    from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
 
     step_ms = {}
     for name, extra in TRICK_RUNS.items():
         argv = TRICK_BASE + extra
         cfg = port_main.fitted_to(build_config(**port_main.parse_args(argv)[0]), pd)
-        K.reset_launch_counts()
+        _build.reset_launch_counts()
         res = port_main.main(argv)[0]
-        counts = dict(K.LAUNCHES)
+        counts = _build.launch_counts("spmm_csr")
         expect = expected_launches(cfg, 3)
         assert counts == expect, f"{name} launched {counts}, expected {expect}"
         assert res.records.shape[0] == 3 and np.isfinite(res.records).all(), (
@@ -1031,18 +1037,17 @@ def propagation_phase(pd, card_name: str, totals: dict) -> dict:
     """Phase 6: --train_which=LP through main, and C&S."""
     from gnn_tail_generalization_tpu_torch import main as port_main
     from gnn_tail_generalization_tpu_torch.config import build_config
-    from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
     from gnn_tail_generalization_tpu_torch.ops.spmm import spmm
     from gnn_tail_generalization_tpu_torch.propagation import correlation as corr
     from gnn_tail_generalization_tpu_torch.propagation import cs
 
     dev = torch.device("cuda")
     log("  (i) --train_which=LP through the port's main")
-    K.reset_launch_counts()
+    _build.reset_launch_counts()
     t0 = time.perf_counter()
     res = port_main.main(LP_ARGS)[0]
     lp_s = time.perf_counter() - t0
-    counts = dict(K.LAUNCHES)
+    counts = _build.launch_counts("spmm_csr")
     log(f"  LP result {res}, launch counts {counts}, run {lp_s:.3f} s [{card_name}]")
     assert set(res) == {"acc_train", "acc_test"} and all(
         np.isfinite(v) for v in res.values()), res
@@ -1076,12 +1081,12 @@ def propagation_phase(pd, card_name: str, totals: dict) -> dict:
         dataset="ogbn-arxiv", train_which="LP", force_set_to_best_config=False), pd)
     cfg = dataclasses.replace(cfg, preStep=dataclasses.replace(
         cfg.preStep, pre_methods="diffusion"))
-    K.reset_launch_counts()
+    _build.reset_launch_counts()
     t0 = time.perf_counter()
     cs_res = cs.run_cs_pipeline(cfg, pd, epochs=CS_EPOCHS, device=dev)
     torch.cuda.synchronize()
     cs_s = time.perf_counter() - t0
-    counts = dict(K.LAUNCHES)
+    counts = _build.launch_counts("spmm_csr")
     lp = cfg.lpStep
     n_cs = lp.num_propagations1 + lp.num_propagations2
     log(f"  C&S acc_train={cs_res['acc_train']:.2f} acc_test={cs_res['acc_test']:.2f}"
@@ -1221,7 +1226,6 @@ def lp_timed(cfg, g, x, split_edge, msg, card_name, totals) -> dict:
     from gnn_tail_generalization_tpu_torch.linkpred import metrics as M
     from gnn_tail_generalization_tpu_torch.linkpred import model as lpm
     from gnn_tail_generalization_tpu_torch.linkpred import sampling
-    from gnn_tail_generalization_tpu_torch.ops import pair_score as PS
 
     dev, n, bsz = x.device, g.n_node, cfg.batch_size
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -1260,7 +1264,7 @@ def lp_timed(cfg, g, x, split_edge, msg, card_name, totals) -> dict:
             neg_s = lpm.predict_chunked(model, h, neg)
         return M.mrr(pos_s, neg_s.reshape(EVAL_POS, OGB_NEG))  # reads back
 
-    PS.reset_launch_counts()
+    _build.reset_launch_counts()
     ogb_eval()
     eval_s = []
     for _ in range(2):
@@ -1268,8 +1272,8 @@ def lp_timed(cfg, g, x, split_edge, msg, card_name, totals) -> dict:
         mrr = ogb_eval()
         eval_s.append(time.perf_counter() - t0)
     assert np.isfinite(mrr), mrr
-    assert PS.LAUNCHES == {"pair_dot_f32": 2 * 3}, PS.LAUNCHES
-    totals["pair_dot_f32"] += PS.LAUNCHES["pair_dot_f32"]
+    assert _build.launch_counts("pair_dot") == {"pair_dot_f32": 2 * 3}, _build.LAUNCHES
+    totals["pair_dot_f32"] += _build.LAUNCHES["pair_dot_f32"]
     log(f"  OGB eval: {EVAL_POS} positives x {OGB_NEG} destinations, MRR={mrr:.4f}, "
         f"warm s {[round(s, 4) for s in eval_s]} [{card_name}]")
     return {"epoch_s": epoch_s, "step_ms": best / TIMED_STEPS * 1e3,
@@ -1278,20 +1282,17 @@ def lp_timed(cfg, g, x, split_edge, msg, card_name, totals) -> dict:
 
 def run_linkpred(cfg, x, split_edge, msg, n_node, expect, tag, card_name,
                  totals, dev, **kw) -> dict:
-    """``train_linkpred`` on the card with the SpMM and pair-scoring launch
-    counts reset before and read after; fails unless they equal ``expect``
+    """``train_linkpred`` on the card with the launch counts reset before and
+    read after; fails unless they equal ``expect`` (0 where it names none)
     and every loss and statistic is finite."""
     from gnn_tail_generalization_tpu_torch.linkpred import model as lpm
-    from gnn_tail_generalization_tpu_torch.ops import pair_score as PS
-    from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
 
-    expect = {k: expect.get(k, 0) for k in (*K.LAUNCHES, *PS.LAUNCHES)}
+    expect = {k: expect.get(k, 0) for k in _build.LAUNCHES}
     torch.cuda.reset_peak_memory_stats()
-    K.reset_launch_counts()
-    PS.reset_launch_counts()
+    _build.reset_launch_counts()
     out = lpm.train_linkpred(cfg, x, msg, n_node, split_edge=split_edge,
                              msg_edges=msg, log_every=1, device=dev, **kw)
-    counts = {**K.LAUNCHES, **PS.LAUNCHES}
+    counts = _build.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     log(f"  {tag}: launches {counts}, epoch s {[round(s, 4) for s in out['epoch_s']]}, "
         f"losses {out['epoch_loss']}, {out['last_results']}, peak {peak_gb:.2f} GiB "
@@ -1312,8 +1313,6 @@ def linkpred_phase(card_name: str, totals: dict, dev) -> tuple:
     which phase 11 trains on."""
     from gnn_tail_generalization_tpu_torch import main as port_main
     from gnn_tail_generalization_tpu_torch.linkpred import model as lpm
-    from gnn_tail_generalization_tpu_torch.ops import edge_attention as EA
-    from gnn_tail_generalization_tpu_torch.ops import pair_score as PS
     from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
 
     t_phase = time.perf_counter()
@@ -1398,27 +1397,23 @@ def linkpred_phase(card_name: str, totals: dict, dev) -> tuple:
     # times backward (dv, dq, dk), the attention rows' kernels once a layer
     # each way; the eval encode the forward of both layers; the one eval's
     # five scored splits (recall_my) a pair-scoring launch each
-    for kind, expect, attn in (
-            ("GCN", {"spmm_csr_f32": 2 * 4 + 2, "pair_dot_f32": SCORED_RECALL}, 0),
-            ("Transformer", {"spmm_csr_f32": 2 * 8 + 2, "pair_dot_f32": SCORED_RECALL},
-             2 * 4 + 2)):
-        EA.reset_launch_counts()
+    for kind, expect in (
+            ("GCN", {"spmm_csr_f32": 2 * 4 + 2, "pair_dot_f32": SCORED_RECALL}),
+            ("Transformer", {"spmm_csr_f32": 2 * 8 + 2, "pair_dot_f32": SCORED_RECALL,
+                             "edge_attn_rows_f32": 2 * 4 + 2})):
         others[kind] = run_linkpred(
             lpm.LinkPredConfig(encoder=kind), None, split_b, msg_b, BENCH_NODES,
             expect, kind, card_name, totals, dev, epochs=1, max_steps_per_epoch=2)
-        assert EA.LAUNCHES == {"edge_attn_rows_f32": attn, "edge_attn_rows_plain": 0}, \
-            f"{kind} attention launches {EA.LAUNCHES}, expected {attn}"
-        for k, v in EA.LAUNCHES.items():
-            totals[k] += v
 
     log("  (vii) --exp_mode=I2_GTL through the port's main (2,000-node stand-in)")
-    K.reset_launch_counts()
-    PS.reset_launch_counts()
+    _build.reset_launch_counts()
     cli = port_main.main(I2GTL_ARGS)[0]
-    assert not any(K.LAUNCHES.values()), K.LAUNCHES  # the dense product
+    counts = _build.launch_counts("spmm_csr")
+    assert not any(counts.values()), counts  # the dense product
     # 2 runs of 5 epochs, an eval an epoch, its five splits a launch each
-    assert PS.LAUNCHES == {"pair_dot_f32": 2 * 5 * SCORED_RECALL}, PS.LAUNCHES
-    totals["pair_dot_f32"] += PS.LAUNCHES["pair_dot_f32"]
+    counts = _build.launch_counts("pair_dot")
+    assert counts == {"pair_dot_f32": 2 * 5 * SCORED_RECALL}, counts
+    totals["pair_dot_f32"] += counts["pair_dot_f32"]
     assert all(np.isfinite(v) for v in cli.values()), cli
     phase_s = time.perf_counter() - t_phase
     log(f"  phase 7: {phase_s:.1f} s")
@@ -1440,7 +1435,6 @@ def reader_phase(card_name: str, totals: dict, root: str) -> dict:
     from gnn_tail_generalization_tpu_torch.config import build_config
     from gnn_tail_generalization_tpu_torch.data.datasets import load_dataset, prepare
     from gnn_tail_generalization_tpu_torch.data.synthetic import write_fake_ogbn_arxiv_raw
-    from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
 
     t0 = time.perf_counter()
     write_fake_ogbn_arxiv_raw(root)
@@ -1458,9 +1452,9 @@ def reader_phase(card_name: str, totals: dict, root: str) -> dict:
     log(f"  fake ogbn-arxiv raw set: write {write_s:.2f} s, read {read_s:.2f} s, "
         f"prepare {prepare_s:.2f} s; {pd.n_node} nodes, {data.edge_index.shape[1]} "
         f"edges read, {pd.graph.n_edge} after the pipeline [{card_name} host]")
-    K.reset_launch_counts()
+    _build.reset_launch_counts()
     res = port_main.main(READER_ARGS + [f"--data_root={root}"])[0]
-    counts = dict(K.LAUNCHES)
+    counts = _build.launch_counts("spmm_csr")
     expect = expected_launches(cfg, 3)
     log(f"  main --data_root: launches {counts}, step_ms "
         f"{[round(v, 3) for v in res.step_ms]} [{card_name}]")
@@ -1478,16 +1472,15 @@ def i2gtl_phase(pd, card_name: str, totals: dict, slice_step_ms: dict) -> dict:
     with fixed pairs."""
     from gnn_tail_generalization_tpu_torch import main as port_main
     from gnn_tail_generalization_tpu_torch.config import build_config
-    from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
     from gnn_tail_generalization_tpu_torch.train import edgewise as ew
 
     out = {}
     for method in ("auto", "pallas_bf16"):
         argv = I2GTL_NODEC_ARGS + [f"--spmm_method={method}"]
         cfg = port_main.fitted_to(build_config(**port_main.parse_args(argv)[0]), pd)
-        K.reset_launch_counts()
+        _build.reset_launch_counts()
         res = port_main.main(argv)[0]
-        counts = dict(K.LAUNCHES)
+        counts = _build.launch_counts("spmm_csr")
         # no loss-masked view under the edgewise loss: 2 launches a layer in
         # the train step (forward, transposed backward), 1 in the eval
         expect = expected_launches(cfg, 3)
@@ -1552,16 +1545,15 @@ def multiseed_phase(pd, card_name: str, totals: dict) -> dict:
     train_teacher from that seed, bit for bit."""
     from gnn_tail_generalization_tpu_torch import main as port_main
     from gnn_tail_generalization_tpu_torch.config import build_config
-    from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
     from gnn_tail_generalization_tpu_torch.train.loops import train_teacher
 
     argv = READER_ARGS + [f"--N_exp={N_EXP}"]
     cfg = port_main.fitted_to(build_config(**port_main.parse_args(argv)[0]), pd)
-    K.reset_launch_counts()
+    _build.reset_launch_counts()
     t0 = time.perf_counter()
     results = port_main.main(argv)
     run_s = time.perf_counter() - t0
-    counts = dict(K.LAUNCHES)
+    counts = _build.launch_counts("spmm_csr")
     expect = expected_launches(cfg, 3 * N_EXP)
     assert counts == expect, f"--N_exp={N_EXP} launched {counts}, expected {expect}"
     for k, v in counts.items():
@@ -1582,15 +1574,14 @@ def checkpoint_phase(pd, card_name: str, totals: dict, root: str) -> dict:
     from gnn_tail_generalization_tpu_torch import main as port_main
     from gnn_tail_generalization_tpu_torch.config import build_config
     from gnn_tail_generalization_tpu_torch.models.teacher import TeacherGNN
-    from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
     from gnn_tail_generalization_tpu_torch.train.checkpoint import load_train_state
     from gnn_tail_generalization_tpu_torch.train.loops import train_teacher
 
     dev = torch.device("cuda")
     cfg = port_main.fitted_to(build_config(**port_main.parse_args(READER_ARGS)[0]), pd)
-    K.reset_launch_counts()
+    _build.reset_launch_counts()
     res = train_teacher(cfg, pd, 0, 3, device=dev, save_dir=root)
-    counts = dict(K.LAUNCHES)
+    counts = _build.launch_counts("spmm_csr")
     assert counts == expected_launches(cfg, 3), counts
     for k, v in counts.items():
         totals[k] += v
@@ -1609,12 +1600,12 @@ def checkpoint_phase(pd, card_name: str, totals: dict, root: str) -> dict:
     assert same and state["epoch"] == 3
 
     argv = READER_ARGS + ["--epochs=1", "--prog=0-1", f"--records_path={root}"]
-    K.reset_launch_counts()
+    _build.reset_launch_counts()
     first = port_main.main(argv)
-    first_counts = dict(K.LAUNCHES)
-    K.reset_launch_counts()
+    first_counts = _build.launch_counts("spmm_csr")
+    _build.reset_launch_counts()
     again = port_main.main(argv)
-    again_counts = dict(K.LAUNCHES)
+    again_counts = _build.launch_counts("spmm_csr")
     log(f"  --prog=0-1: first run launches {first_counts}, repeated run "
         f"{len(again)} results, launches {again_counts}")
     assert len(first) == 1 and first_counts == expected_launches(cfg, 1), first_counts
@@ -1754,12 +1745,12 @@ def baselines_phase(msg, gb, card_name: str, totals: dict, dev) -> dict:
     for alg in ("DGI", "EGI", "VGAE"):
         stats = {}
         torch.cuda.reset_peak_memory_stats()
-        K.reset_launch_counts()
+        _build.reset_launch_counts()
         t0 = time.perf_counter()
         embs = api.gen_baseline_embs(msg, C2_NODES, alg, hidden_dim=BASELINE_HIDDEN,
                                      epochs=BASELINE_EPOCHS, device=dev, stats=stats)
         run_s = time.perf_counter() - t0
-        counts = dict(K.LAUNCHES)
+        counts = _build.launch_counts("spmm_csr")
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         expect = expected_baseline_launches(alg, stats["epochs_run"])
         width = 32 if alg == "VGAE" else BASELINE_HIDDEN
@@ -1826,10 +1817,10 @@ def baselines_phase(msg, gb, card_name: str, totals: dict, dev) -> dict:
     out["pretrain_gin"] = {}
     for variant, per_epoch in (("masking", 3), ("contextpred", 6)):
         stats = {}
-        K.reset_launch_counts()
+        _build.reset_launch_counts()
         embs, _ = pg.train_pretrain_gin(gb, x_b, variant, hidden_dim=BASELINE_HIDDEN,
                                         epochs=BASELINE_EPOCHS, device=dev, stats=stats)
-        counts = dict(K.LAUNCHES)
+        counts = _build.launch_counts("spmm_csr")
         # masking: one two-layer GIN pass an epoch; contextpred: the
         # substruct pass on the graph and the context pass on the union
         expect = {"spmm_csr_f32": per_epoch * BASELINE_EPOCHS + 2, "spmm_csr_bf16": 0,
@@ -1851,11 +1842,11 @@ def baselines_phase(msg, gb, card_name: str, totals: dict, dev) -> dict:
     n_b = gb.n_node
     model = sp.StructFeatPretrain(BASELINE_HIDDEN, BASELINE_HIDDEN,
                                   generator=torch.Generator().manual_seed(0)).to(dev)
-    K.reset_launch_counts()
+    _build.reset_launch_counts()
     loss = model(gb.to(dev), gm.to(dev), torch.as_tensor(x_b, device=dev),
                  *(torch.as_tensor(a, device=dev) for a in pairs))
     loss.backward()
-    counts = dict(K.LAUNCHES)
+    counts = _build.launch_counts("spmm_csr")
     grads_ok = all(torch.isfinite(p.grad).all() for p in model.parameters())
     log(f"  StructFeatPretrain: loss {loss.item():.5f}, gradients finite {grads_ok}, "
         f"launches {counts}; host masked graph + centralities {host_s:.2f} s")
@@ -2026,7 +2017,6 @@ def dist_rank(comm, argv: list) -> dict:
     the rank's device (the CPU for a dry run of this function)."""
     from gnn_tail_generalization_tpu_torch import main as port_main
     from gnn_tail_generalization_tpu_torch.config import build_config
-    from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
     from gnn_tail_generalization_tpu_torch.parallel.distgraph import (
         dist_spmm, is_row_sharded)
     from gnn_tail_generalization_tpu_torch.train import loops
@@ -2050,12 +2040,12 @@ def dist_rank(comm, argv: list) -> dict:
            "n_node_pad": pd.graph.n_node_pad, "n_sets": n_sets.cpu().numpy(), "runs": {}}
 
     def run(name, cfg_r, epochs):
-        K.reset_launch_counts()
+        _build.reset_launch_counts()
         comm.counts.update(dict.fromkeys(comm.counts, 0))
         res = loops.train_teacher(cfg_r, pd, cfg_r.random_seed, epochs, device=dev)
         out["runs"][name] = {
             "records": res.records, "columns": res.columns, "step_ms": res.step_ms,
-            "launches": dict(K.LAUNCHES), "comm": dict(comm.counts),
+            "launches": _build.launch_counts("spmm_csr"), "comm": dict(comm.counts),
             "expected": expected_dist_launches(cfg_r, epochs, pd.graph,
                                                loops.final_agg_view(cfg_r, pd)),
             "visits": 3 * cfg_r.num_layers * epochs * s,
@@ -2345,7 +2335,6 @@ def dist_link_rank(comm, reset) -> dict:
     step on the one-device graph, which sums each row whole where the ring
     sums it a bucket at a time)."""
     from gnn_tail_generalization_tpu_torch.linkpred import model as lpm
-    from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
 
     dev, n = comm.device, BENCH_NODES
     split, msg, _ = lp_split(n, BENCH_EDGES)
@@ -2359,7 +2348,7 @@ def dist_link_rank(comm, reset) -> dict:
     run = lpm.train_linkpred(cfg, x, msg, n, epochs=2, eval_steps=2, split_edge=split,
                              msg_edges=msg, max_steps_per_epoch=LINK_STEPS, comm=comm,
                              device=dev)
-    launches, counts = dict(K.LAUNCHES), dict(comm.counts)
+    launches, counts = _build.launch_counts("spmm_csr"), dict(comm.counts)
     g = lpm.link_dist_graph(cfg, msg, n, comm).to(dev)
     live = [sum(b.n_edge > 0 for b in bs) for bs in (g.buckets, g.buckets_t)]
     n_pos = len(split["train"]["edge"])
@@ -2403,7 +2392,6 @@ def student_dist_rank(comm) -> dict:
     link prediction."""
     from gnn_tail_generalization_tpu_torch import main as port_main
     from gnn_tail_generalization_tpu_torch.config import build_config
-    from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
     from gnn_tail_generalization_tpu_torch.parallel.distgraph import is_row_sharded
     from gnn_tail_generalization_tpu_torch.propagation import correlation as corr
     from gnn_tail_generalization_tpu_torch.train import loops
@@ -2428,7 +2416,7 @@ def student_dist_rank(comm) -> dict:
            "batch": min(cfg0.batch_size, len(pd.train_idx))}
 
     def reset():
-        K.reset_launch_counts()
+        _build.reset_launch_counts()
         comm.counts.update(dict.fromkeys(comm.counts, 0))
 
     semlp = None
@@ -2437,7 +2425,7 @@ def student_dist_rank(comm) -> dict:
         reset()
         res = loops.run_experiment(cfg, pd, cfg.random_seed, STUDENT_DIST_EPOCHS,
                                    device=dev)
-        run = {"launches": dict(K.LAUNCHES), "comm": dict(comm.counts),
+        run = {"launches": _build.launch_counts("spmm_csr"), "comm": dict(comm.counts),
                "expected": student_dist_launches(name, cfg, g,
                                                  loops.final_agg_view(cfg, pd), dad)}
         if isinstance(res, dict):  # LP
@@ -2466,18 +2454,17 @@ def link_c2_one_rank(card_name: str, split_edge, msg, phase7_step_ms: float,
     bench config through ``train_linkpred(comm=...)`` as phase 7 (ii) runs
     it, the host bucket build's seconds, the launches and the step ms."""
     from gnn_tail_generalization_tpu_torch.linkpred import model as lpm
-    from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
     from gnn_tail_generalization_tpu_torch.parallel.comm import Comm
 
     dev = torch.device("cuda")
     comm = Comm(0, 1, dev, "nccl")
     x = torch.randn(C2_NODES, C2_FEATS, device=dev,
                     generator=torch.Generator(device=dev).manual_seed(0))
-    K.reset_launch_counts()
+    _build.reset_launch_counts()
     run = lpm.train_linkpred(link_bench_config(), x, msg, C2_NODES, epochs=2, eval_steps=2,
                              split_edge=split_edge, msg_edges=msg, max_steps_per_epoch=8,
                              comm=comm, device=dev)
-    counts = dict(K.LAUNCHES)
+    counts = _build.launch_counts("spmm_csr")
     expect = {"spmm_csr_f32": 0, "spmm_csr_bf16": 1 + 2 * 16 + 1, "spmm_csr_plain": 0}
     step_ms = run["epoch_s"][1] / 8 * 1e3
     log(f"  (iv) citation2 shape, S = 1 (one rank, no collectives): host bucket build "
@@ -2746,7 +2733,7 @@ def two_axis_rank(world, argv: list) -> dict:
         for run, (method, seed) in DIST_RUNS.items():
             cfg_r = dataclasses.replace(cfg, spmm_method=method,
                                         random_seed=cfg.random_seed + seed)
-            K.reset_launch_counts()
+            _build.reset_launch_counts()
             for c in comms:
                 c.counts.update(dict.fromkeys(c.counts, 0))
             res = loops.train_teacher(cfg_r, pd, cfg_r.random_seed, TWO_AXIS_EPOCHS,
@@ -2757,7 +2744,7 @@ def two_axis_rank(world, argv: list) -> dict:
                                                loops.final_agg_view(cfg_r, pd)))
             out["runs"][f"{layout} {run}"] = {
                 "records": res.records, "columns": res.columns, "step_ms": res.step_ms,
-                "launches": dict(K.LAUNCHES), "expected": expected,
+                "launches": _build.launch_counts("spmm_csr"), "expected": expected,
                 "comm": {f"{m}/{a}": dict(meshes[m].comm(a).counts)
                          for m in meshes for a in meshes[m].names},
                 "state": {k: v.cpu().numpy() for k, v in res.state_dict.items()
@@ -3118,19 +3105,17 @@ def elp_run(tag, fn, expect, card_name, totals) -> tuple:
     call on the plain version (on the host graph the first call built, where
     it built one), within REL_TOL relative. Returns its numbers and that
     host graph."""
-    from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
-
     built = {}
-    K.reset_launch_counts()
+    _build.reset_launch_counts()
     with edge_graph_hook(built):
         out, run_s = timed(lambda: (fn(), torch.cuda.synchronize())[0])
-    counts = dict(K.LAUNCHES)
+    counts = _build.launch_counts("spmm_csr")
     adj = built.get("adj")
     with plain_kernels(), (contextlib.nullcontext() if adj is None
                            else edge_graph_hook({}, adj)):
         ref = fn()
     err = rel_err(out, ref)
-    expect = {k: expect.get(k, 0) for k in K.LAUNCHES}
+    expect = {k: expect.get(k, 0) for k in counts}
     log(f"      {tag}: {tuple(out.shape)}, {run_s:.3f} s (host build included"
         + (f", its DAD build {built['dad_s']:.3f} s" if adj is not None else "")
         + f"), launches {counts}, vs the plain SpMM rel err {err:.3e} [{card_name}]")
@@ -3149,7 +3134,6 @@ def edge_lp_phase(scored, eb, card_name, totals, dev) -> dict:
     edge graph timed, and evaluate with each mode."""
     from gnn_tail_generalization_tpu_torch.linkpred import edge_lp as elp
     from gnn_tail_generalization_tpu_torch.linkpred import model as lpm
-    from gnn_tail_generalization_tpu_torch.ops import pair_score as PS
     from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
 
     out = {}
@@ -3209,14 +3193,13 @@ def edge_lp_phase(scored, eb, card_name, totals, dev) -> dict:
         # propagations: one a column block of 128 in xmc mode; the pair-scoring
         # kernel once a split, five (the train positives guide the propagation)
         elp_n = ELP_PROPS * (xmc_blocks(all_edges, ELP_SPLIT_NODES) if mode == "xmc" else 1)
-        expect = {k: (4 + 2 + elp_n if k == "spmm_csr_f32" else 0) for k in K.LAUNCHES}
-        expect["pair_dot_f32"] = SCORED_RECALL
-        K.reset_launch_counts()
-        PS.reset_launch_counts()
+        expect = {**dict.fromkeys(_build.launch_counts("spmm_csr"), 0),
+                  "spmm_csr_f32": 4 + 2 + elp_n, "pair_dot_f32": SCORED_RECALL}
+        _build.reset_launch_counts()
         run = lpm.train_linkpred(cfg, None, msg_s, ELP_SPLIT_NODES, epochs=1,
                                  split_edge=split, msg_edges=msg_s, max_steps_per_epoch=1,
                                  device=dev)
-        counts = {**K.LAUNCHES, **PS.LAUNCHES}
+        counts = {**_build.launch_counts("spmm_csr"), **_build.launch_counts("pair_dot")}
         mrr = run["last_results"]["MRR"]
         log(f"      {mode}: MRR {mrr}, launches {counts} [{card_name}]")
         assert np.isfinite(mrr).all(), (mode, mrr)
@@ -3282,9 +3265,7 @@ def bespoke_run(step, params, batch, sg, steps: int, dev) -> dict:
     the losses, each step's host ms (card synchronized), and after
     ``BESPOKE_SHARDED_STEPS`` steps this rank's blocks of the parameters
     other than the SE table and the SE block's squared norm."""
-    from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
-
-    K.reset_launch_counts()
+    _build.reset_launch_counts()
     losses, ms, held = [], [], None
     for i in range(steps):
         if dev.type == "cuda":
@@ -3296,8 +3277,8 @@ def bespoke_run(step, params, batch, sg, steps: int, dev) -> dict:
         if i + 1 == BESPOKE_SHARDED_STEPS:
             held = {"blocks": {k: v.cpu().numpy() for k, v in params.items() if k != "se0"},
                     "se_sq": float((params["se0"].double() ** 2).sum())}
-    return {"losses": np.array(losses), "step_ms": ms, "launches": dict(K.LAUNCHES),
-            **held}
+    return {"losses": np.array(losses), "step_ms": ms,
+            "launches": _build.launch_counts("spmm_csr"), **held}
 
 
 def bespoke_launches(steps: int, dev) -> dict:
@@ -3588,7 +3569,6 @@ def bench_twins_phase(card_name: str, totals: dict) -> dict:
     import bench_linkpred_torch as LP
     import bench_torch as BT
 
-    from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
 
     t_phase = time.perf_counter()
     bench, bench_s = run_twin("bench_torch.py")
@@ -3602,7 +3582,7 @@ def bench_twins_phase(card_name: str, totals: dict) -> dict:
     assert bench["dist_numerics_ok"] is True, bench["dist_loss_rel_diff_max"]
     timed = BT.WINDOWS * BT.TIMED_STEPS
     assert bench["timed_steps"] == timed, bench["timed_steps"]
-    expect = {k: 0 for k in K.LAUNCHES}  # the SpMM counts the twins report
+    expect = dict.fromkeys(_build.launch_counts("spmm_csr"), 0)  # the twins report these
     expect["spmm_csr_bf16"] = 2 * bench["num_layers"] * timed
     for key in ("kernel_launches", "dist_kernel_launches"):
         log(f"  bench_torch.py {key}: {bench[key]}, expected {expect}")
@@ -3618,7 +3598,7 @@ def bench_twins_phase(card_name: str, totals: dict) -> dict:
     assert 0 < ogb["mrr"] <= 1, ogb["mrr"]
     assert (link["warm_epoch_steps"], link["timed_epochs"]) == (LP.TIMED_STEPS,
                                                                LP.TIMED_EPOCHS)
-    expect_lp = {k: 0 for k in K.LAUNCHES}
+    expect_lp = dict.fromkeys(_build.launch_counts("spmm_csr"), 0)
     expect_lp["spmm_csr_bf16"] = 2 * LP.TIMED_STEPS * LP.TIMED_EPOCHS
     log(f"  bench_linkpred_torch.py kernel_launches: {link['kernel_launches']}, "
         f"expected {expect_lp}")
@@ -3638,7 +3618,6 @@ def profile_phase(pd, card_name: str, totals: dict) -> dict:
     its JSON checked, its launch counts added to ``totals``."""
     from gnn_tail_generalization_tpu_torch import main as port_main
     from gnn_tail_generalization_tpu_torch.config import build_config
-    from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
 
     t_phase = time.perf_counter()
     out_dir = scratch_dir("phase16-")
@@ -3653,7 +3632,8 @@ def profile_phase(pd, card_name: str, totals: dict) -> dict:
     argv = TRICK_BASE + TRICK_RUNS[trick]
     cfg = port_main.fitted_to(build_config(**port_main.parse_args(argv)[0]), pd)
     expect = {trick: expected_launches(cfg, report["epochs"]),
-              lp: {k: (N_PROP if k == "spmm_csr_f32" else 0) for k in K.LAUNCHES}}
+              lp: {**dict.fromkeys(_build.launch_counts("spmm_csr"), 0),
+                   "spmm_csr_f32": N_PROP}}
     out = {}
     for name in PROFILE_CELLS:
         cell = out[name] = report["cells"][name]
@@ -3694,9 +3674,6 @@ def main() -> int:
     from gnn_tail_generalization_tpu_torch.data.synthetic import fast_powerlaw_graph
     from gnn_tail_generalization_tpu_torch.graph.core import (
         build_graph, standard_pipeline)
-    from gnn_tail_generalization_tpu_torch.ops import _build
-    from gnn_tail_generalization_tpu_torch.ops import edge_attention as EA
-    from gnn_tail_generalization_tpu_torch.ops import pair_score as PS
     from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
     from gnn_tail_generalization_tpu_torch.train.loops import final_agg_view
     from gnn_tail_generalization_tpu_torch.utils.device import card
@@ -3766,11 +3743,6 @@ def main() -> int:
                 if tag == "bench fwd" and d == 256:
                     st.update({k: r[k] for k in ("ms", "plain_ms", "library_ms",
                                                  "bound_ms", "bound_by", "share_of_bound")})
-                    again = [fn(g.indptr, g.indices, g.weight, x, schedule=g.schedule)
-                             for _ in range(2)]
-                    same = torch.equal(*again)
-                    log(f"  {name:14s} two launches on the bench graph bit-identical: {same}")
-                    assert same, f"{name}: two launches differ"
                 if tag == "degree boundary fwd" and d == 40:
                     direct = fn(g.indptr, g.indices, g.weight, x)  # builds its schedule
                     same = torch.equal(direct, fn(g.indptr, g.indices, g.weight, x,
@@ -3782,17 +3754,15 @@ def main() -> int:
 
     log("== phase 3: the slice through the port's main")
     launches, step_ms = {}, {}
-    totals = {k: 0 for k in K.LAUNCHES}  # launches over every phase
-    totals.update({k: 0 for k in EA.LAUNCHES})
-    totals.update({k: 0 for k in PS.LAUNCHES})
+    totals = dict.fromkeys(_build.LAUNCHES, 0)  # launches over every phase
     for method, kernel in (("auto", "spmm_csr_f32"),
                            ("pallas_bf16", "spmm_csr_bf16")):
-        K.reset_launch_counts()
+        _build.reset_launch_counts()
         results = port_main.main(SLICE_ARGS + [f"--spmm_method={method}"])
-        counts = dict(K.LAUNCHES)
+        counts = _build.launch_counts("spmm_csr")
         log(f"  launch counts after --spmm_method={method}: {counts}")
         assert counts[kernel] > 0, f"{kernel} never launched on the slice"
-        expect = {k: (counts[kernel] if k == kernel else 0) for k in K.LAUNCHES}
+        expect = {k: (counts[kernel] if k == kernel else 0) for k in counts}
         assert counts == expect, f"--spmm_method={method} launched {counts}"
         launches[kernel] = counts[kernel]
         rec = results[0].records

@@ -68,6 +68,25 @@ class RowSchedule:
             for f in dataclasses.fields(self)
             if isinstance(getattr(self, f.name), torch.Tensor)})
 
+    def check(self, n_rows: int, n_edge: int, device) -> None:
+        """Raises unless this schedule fits a CSR of ``n_rows`` rows and
+        ``n_edge`` edges on ``device``: a schedule built from another CSR's
+        ``indptr`` would leave this one's hub rows unwritten (the light
+        kernel skips them)."""
+        if self.hub_chunk_ptr.shape[0] != self.n_hub + 1 or self.n_hub > n_rows:
+            raise ValueError(f"schedule of {self.n_hub} hub rows and "
+                             f"{self.hub_chunk_ptr.shape[0]} chunk pointers for a CSR "
+                             f"of {n_rows} rows")
+        if (self.n_rows, self.n_edge) != (n_rows, n_edge):
+            raise ValueError(f"schedule built for a CSR of {self.n_rows} rows and "
+                             f"{self.n_edge} edges, passed with one of {n_rows} rows "
+                             f"and {n_edge} edges")
+        for name in ("hub_rows", "hub_chunk_ptr", "chunk_bounds"):
+            t = getattr(self, name)
+            if t.device != device or t.dtype != torch.int32 or not t.is_contiguous():
+                raise ValueError(f"schedule.{name} must be contiguous int32 on {device}, "
+                                 f"got {t.dtype} on {t.device}")
+
 
 def build_schedule(indptr, threshold: int = HUB_THRESHOLD) -> RowSchedule:
     """The ``RowSchedule`` of a CSR with row pointers ``indptr`` ([R + 1],

@@ -16,8 +16,8 @@ are scaled by ``max_norm / norm`` only where ``norm >= max_norm`` (torch's
 ``clip_grad_norm_`` divides by ``norm + 1e-6``), and AdamW's weight decay is
 optax's default 1e-4 (torch's is 1e-2).
 
-``device_epoch=True`` runs each epoch with the JAX package's protocol
-(``make_epoch_fn``): the epoch's permutation and all its negatives are drawn
+Each epoch runs with the JAX package's protocol (``make_epoch_fn``,
+its ``device_epoch=True``): the epoch's permutation and all its negatives are drawn
 on the device in one batch, the final partial batch is wrap-filled with the
 wrapped entries masked by ``valid``, and the losses stay on the device
 until one host read per epoch. The JAX package scans the steps in one
@@ -461,7 +461,6 @@ def train_linkpred(
     split_edge: Optional[Dict] = None,
     msg_edges: Optional[np.ndarray] = None,
     max_steps_per_epoch: Optional[int] = None,
-    device_epoch: bool = True,
     comm: Optional[Comm] = None,
     dist_rb: int = 128,
     *,
@@ -471,9 +470,8 @@ def train_linkpred(
     ``split_edge`` given (e.g. from linkpred/surgery.py transfer settings)
     the provided split is used; otherwise a random split is made.
     ``x``: [n_node, F] features (numpy or a tensor, e.g. drawn on the
-    card) or None. ``max_steps_per_epoch`` caps minibatches per epoch;
-    ``device_epoch`` as in the module docstring (False: the per-batch loop
-    with a host permutation and per-positive negatives). Run r initialises
+    card) or None. ``max_steps_per_epoch`` caps minibatches per epoch,
+    each run as in the module docstring. Run r initialises
     from a generator seeded ``seed + 1000 r`` and trains from one seeded
     ``seed + 1000 r + 1``, both on ``device``. The result also holds
     ``epoch_s``, each epoch's seconds up to its host read of the losses,
@@ -544,21 +542,12 @@ def train_linkpred(
         with torch.device(device):
             model = LinkPredModel(cfg, n_node, xd.shape[1], generator=init_gen)
         optimizer = make_optimizer(cfg, model.parameters())
-        if device_epoch:
-            epoch_fn = make_epoch_fn(cfg, model, optimizer, n_node, n_steps,
-                                     bsz, n_draw_fix)
-        else:
-            step = make_train_step(cfg, model, optimizer)
+        epoch_fn = make_epoch_fn(cfg, model, optimizer, n_node, n_steps, bsz, n_draw_fix)
 
         for epoch in range(epochs):
             model.train()
             t0 = time.perf_counter()
-            if device_epoch:
-                losses = epoch_fn(const, pos_all, keys, gen)
-            else:
-                losses = _host_loop_epoch(cfg, step, const, pos_all, keys, gen,
-                                          n_node, n_pos, bsz, seed, epoch,
-                                          max_steps_per_epoch)
+            losses = epoch_fn(const, pos_all, keys, gen)
             with debug.host_read("gnn.link.read"):  # the epoch's one host read
                 total_loss = float(losses.sum())
             epoch_s.append(time.perf_counter() - t0)
@@ -579,49 +568,6 @@ def train_linkpred(
             "last_results": results_last, "params": model.state_dict(),
             "split_edge": split_edge, "epoch_s": epoch_s,
             "epoch_loss": epoch_loss, "graph_build_s": graph_build_s}
-
-
-def _host_loop_epoch(cfg, step, const, pos_all, keys, gen, n_node, n_pos,
-                     bsz, seed, epoch, max_steps_per_epoch) -> torch.Tensor:
-    """``device_epoch=False``: a host permutation, the epoch's negatives
-    drawn per positive (per batch position when capped), one step per
-    batch."""
-    dev = pos_all.device
-    perm = np.random.default_rng(seed * 1000 + epoch).permutation(n_pos)
-    # capped epochs (benchmarking): only draw negatives for the positives
-    # actually visited — negatives then pair with batch POSITIONS (perm
-    # prefix) instead of positive indices, which is distributionally
-    # identical for the iid samplers
-    n_draw = n_pos
-    if max_steps_per_epoch:
-        n_draw = min(n_pos, max_steps_per_epoch * bsz)
-        perm = perm[:n_draw]
-    if cfg.neg_sampler == "global":
-        neg = sampling.global_neg_sample(gen, keys, n_node, n_draw,
-                                         cfg.num_neg)
-    elif cfg.neg_sampler == "local":
-        pos_for_local = (pos_all if n_draw == n_pos
-                         else pos_all[torch.from_numpy(perm).to(dev)])
-        neg = sampling.local_neg_sample(gen, pos_for_local, n_node,
-                                        cfg.num_neg)
-    else:
-        neg = sampling.global_perm_neg_sample(gen, keys, n_node, n_draw,
-                                              cfg.num_neg)
-    losses = []
-    # every positive edge is visited each epoch: the final partial batch is
-    # wrap-filled from the permutation's start and the wrapped entries'
-    # loss masked, as the reference's drop_last=False partial batch
-    for s0 in range(0, n_draw, bsz):
-        idx = s0 + np.arange(bsz)
-        pos_i = idx % n_draw
-        sel = perm[pos_i]
-        # uncapped: negatives are per-positive (neg[sel], the original
-        # pairing); capped: per-position (neg[pos_i])
-        nsel = sel if n_draw == n_pos else pos_i
-        valid = torch.from_numpy((idx < n_draw).astype(np.float32)).to(dev)
-        losses.append(step(const, pos_all[torch.from_numpy(sel).to(dev)],
-                           neg[torch.from_numpy(nsel).to(dev)], gen, valid))
-    return torch.stack(losses)
 
 
 def encode_all(model: LinkPredModel, const) -> torch.Tensor:

@@ -19,8 +19,8 @@ plain version ``edge_attn_rows_plain``. The four weighted aggregations are
 CSR or the transposed one (``Graph.with_edge_weight`` gives both orders;
 the forward's ``alpha`` is kept in both for ``dv``). So no ``[E, d]`` tensor is made on the card; everything is f32.
 
-``LAUNCHES`` counts the kernel calls and the plain version's, as
-``ops/spmm_kernels.py:LAUNCHES`` does. The recorder (``utils/debug.py``)
+``ops/_build.py:LAUNCHES`` counts the kernel calls and the plain
+version's. The recorder (``utils/debug.py``)
 sees a ``gnn.attn`` span around each forward, ``gnn.attn.backward`` around
 each backward, and ``attn.calls``, one a forward.
 """
@@ -32,16 +32,11 @@ import torch
 
 from ..graph.core import Graph, RowSchedule, build_schedule, edge_rows
 from ..utils import debug
+from . import _build
 from . import spmm as _spmm
-from .spmm_kernels import PLAIN_EDGE_CHUNK, _check_schedule, _on_cuda, _vec_width
+from .spmm_kernels import PLAIN_EDGE_CHUNK, vec_width
 
-LAUNCHES = {"edge_attn_rows_f32": 0, "edge_attn_rows_plain": 0}
 MODES = {"softmax": 0, "grad": 1}
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def edge_attn_rows_plain(mode: str, indptr: torch.Tensor, indices: torch.Tensor,
@@ -52,7 +47,7 @@ def edge_attn_rows_plain(mode: str, indptr: torch.Tensor, indices: torch.Tensor,
     segment softmax (``mode="softmax"``; the row maximum is a shift and
     takes no part in the result) or the softmax's gradient by the logit
     times ``scale`` (``"grad"``, from ``alpha``)."""
-    LAUNCHES["edge_attn_rows_plain"] += 1
+    _build.LAUNCHES["edge_attn_rows_plain"] += 1
     n_rows, n_edge = indptr.numel() - 1, indices.numel()
     rows = edge_rows(indptr, n_edge)
     p = torch.empty(n_edge, dtype=torch.float32, device=a.device)
@@ -74,28 +69,18 @@ def edge_attn_rows_plain(mode: str, indptr: torch.Tensor, indices: torch.Tensor,
 
 def _launch(mode: str, indptr, indices, a, b, scale: float, alpha,
             schedule: Optional[RowSchedule]) -> torch.Tensor:
-    from . import _build
-
-    lib = _build.load()
     n_rows, d = indptr.numel() - 1, a.shape[1]
-    if schedule is None:
-        schedule = build_schedule(indptr.cpu().numpy()).to(a.device)
-    _check_schedule(schedule, n_rows, indices.numel(), a.device)
+    s = schedule if schedule is not None else build_schedule(indptr.cpu().numpy()).to(a.device)
+    s.check(n_rows, indices.numel(), a.device)
     out = torch.empty(indices.numel(), dtype=torch.float32, device=a.device)
-    partial = torch.empty(schedule.n_chunks, 2, dtype=torch.float32, device=a.device)
-    vec = min(_vec_width(d, a, (4, 2, 1)), _vec_width(d, b, (4, 2, 1)))
+    partial = torch.empty(s.n_chunks, 2, dtype=torch.float32, device=a.device)
+    vec = min(vec_width(d, a, (4, 2, 1)), vec_width(d, b, (4, 2, 1)))
     nv = 1 if d // vec <= 32 else 2
-    s = schedule
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        LAUNCHES["edge_attn_rows_f32"] += 1
-        rc = lib.edge_attn_rows_f32(
-            MODES[mode], indptr.data_ptr(), indices.data_ptr(), a.data_ptr(), b.data_ptr(),
-            0 if alpha is None else alpha.data_ptr(), out.data_ptr(), n_rows, d, vec, nv,
-            scale, s.hub_rows.data_ptr(), s.hub_chunk_ptr.data_ptr(), s.n_hub,
-            s.chunk_bounds.data_ptr(), s.n_chunks, s.threshold, partial.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"edge_attn_rows_f32 launch failed: CUDA error {rc}")
+    _build.launch("edge_attn_rows_f32", a.device, MODES[mode], indptr.data_ptr(),
+                  indices.data_ptr(), a.data_ptr(), b.data_ptr(),
+                  0 if alpha is None else alpha.data_ptr(), out.data_ptr(), n_rows, d, vec, nv,
+                  scale, s.hub_rows.data_ptr(), s.hub_chunk_ptr.data_ptr(), s.n_hub,
+                  s.chunk_bounds.data_ptr(), s.n_chunks, s.threshold, partial.data_ptr())
     return out
 
 
@@ -137,9 +122,9 @@ def edge_attn_rows(mode: str, indptr: torch.Tensor, indices: torch.Tensor, a: to
     if (mode == "grad") != (alpha is not None):
         raise ValueError("alpha is given with mode 'grad' and only then")
     _check(indptr, indices, a, b, alpha)
-    if not _on_cuda(a):
+    if not _build.on_cuda(a, "SpMM"):
         if schedule is not None:
-            _check_schedule(schedule, indptr.numel() - 1, indices.numel(), a.device)
+            schedule.check(indptr.numel() - 1, indices.numel(), a.device)
         return edge_attn_rows_plain(mode, indptr, indices, a, b, scale, alpha)
     return _launch(mode, indptr, indices, a, b, scale, alpha, schedule)
 
@@ -153,7 +138,7 @@ class _EdgeAttention(torch.autograd.Function):
             alpha = edge_attn_rows("softmax", g.indptr, g.indices, q, k, scale,
                                    schedule=g.schedule)
             ga = g.with_edge_weight(alpha)  # its transposed order serves dv
-            out = _spmm._spmm_impl(ga, v, "pallas")
+            out = _spmm.spmm_impl(ga, v, "pallas")
         ctx.ga, ctx.scale = ga, scale
         ctx.save_for_backward(q, k, v)
         return out
@@ -166,15 +151,15 @@ class _EdgeAttention(torch.autograd.Function):
         with debug.span("gnn.attn.backward"):
             d_out = d_out.contiguous()
             if need[2]:
-                dv = _spmm._spmm_impl(ga.transpose(), d_out, "pallas")
+                dv = _spmm.spmm_impl(ga.transpose(), d_out, "pallas")
             if need[0] or need[1]:
                 ds = edge_attn_rows("grad", ga.indptr, ga.indices, d_out, v, ctx.scale,
                                     alpha=ga.weight, schedule=ga.schedule)
                 gd = ga.with_edge_weight(ds)
                 if need[0]:
-                    dq = _spmm._spmm_impl(gd, k, "pallas")
+                    dq = _spmm.spmm_impl(gd, k, "pallas")
                 if need[1]:
-                    dk = _spmm._spmm_impl(gd.transpose(), q, "pallas")
+                    dk = _spmm.spmm_impl(gd.transpose(), q, "pallas")
         return dq, dk, dv, None
 
 

@@ -1,4 +1,4 @@
-"""The pair-scoring kernel, its plain PyTorch version and its launch count.
+"""The pair-scoring kernel and its plain PyTorch version.
 
 ``pair_dot(h, pairs)`` gives ``out[p] = h[pairs[p, 0]] . h[pairs[p, 1]]``
 for an f32 table ``h`` [N, d] and int64 ``pairs`` [m, 2], in one call for a
@@ -14,22 +14,17 @@ whole split:
   ``linkpred/predictors.py:DotPredictor`` scores gathered rows.
 
 Both refuse what the kernel does not take (``check_pairs``): there is no
-fallback. ``LAUNCHES`` counts the kernel's launches, and each launch also
-counts in the recorder's ``score.kernel_calls`` (``utils/debug.py``).
+fallback. ``ops/_build.py:LAUNCHES`` counts the kernel's launches, and each
+launch also counts in the recorder's ``score.kernel_calls``
+(``utils/debug.py``).
 """
 from __future__ import annotations
 
 import torch
 
-from ..utils import debug
+from . import _build
 
-LAUNCHES = {"pair_dot_f32": 0}
 PLAIN_CHUNK = 64 * 1024  # pairs a gather of the plain version
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def pair_dot_plain(h: torch.Tensor, pairs: torch.Tensor,
@@ -68,26 +63,15 @@ def pair_dot(h: torch.Tensor, pairs: torch.Tensor) -> torch.Tensor:
     version on a CPU one; raises for any other device and for what
     ``check_pairs`` refuses."""
     check_pairs(h, pairs)
-    if h.device.type == "cpu":
+    if not _build.on_cuda(h, "pair-scoring"):
         return pair_dot_plain(h, pairs)
-    if h.device.type != "cuda":
-        raise ValueError(f"no pair-scoring kernel for device {h.device}")
     if pairs.data_ptr() % 16:
         raise ValueError("the kernel reads a pair with one 16-byte load: pairs must "
                          "start 16-byte aligned")
-    from . import _build
-
-    lib = _build.load()
     m = pairs.shape[0]
     out = torch.empty(m, dtype=torch.float32, device=h.device)
     if m == 0:
         return out
-    with torch.cuda.device(h.device):
-        stream = torch.cuda.current_stream(h.device).cuda_stream
-        LAUNCHES["pair_dot_f32"] += 1
-        debug.count("score.kernel_calls")
-        rc = lib.pair_dot_f32(h.data_ptr(), pairs.data_ptr(), out.data_ptr(), h.shape[0], m,
-                              h.shape[1], stream)
-    if rc != 0:
-        raise RuntimeError(f"pair_dot_f32 launch failed: CUDA error {rc}")
+    _build.launch("pair_dot_f32", h.device, h.data_ptr(), pairs.data_ptr(), out.data_ptr(),
+                  h.shape[0], m, h.shape[1], counter="score.kernel_calls")
     return out

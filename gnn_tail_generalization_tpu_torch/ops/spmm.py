@@ -45,7 +45,7 @@ def round_bf16(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.bfloat16).to(torch.float32)
 
 
-def _spmm_impl(g: Graph, x: torch.Tensor, method: str) -> torch.Tensor:
+def spmm_impl(g: Graph, x: torch.Tensor, method: str) -> torch.Tensor:
     """One aggregation on one device: every SpMM forward and transposed
     backward comes through here (counted in ``spmm.calls``)."""
     debug.count("spmm.calls")
@@ -74,11 +74,11 @@ class _SpMM(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, g, method):
         ctx.g, ctx.method, ctx.x_dtype = g, method, x.dtype
-        return _spmm_impl(g, x, method)
+        return spmm_impl(g, x, method)
 
     @staticmethod
     def backward(ctx, dy):
-        dx = _spmm_impl(ctx.g.transpose(), dy.contiguous(), ctx.method)
+        dx = spmm_impl(ctx.g.transpose(), dy.contiguous(), ctx.method)
         return dx.to(ctx.x_dtype), None, None
 
 
@@ -104,13 +104,13 @@ class _SpMMEdgeGrad(torch.autograd.Function):
         gw = g.with_edge_weight(w, rebuild_dense=method == "dense")
         ctx.save_for_backward(x)
         ctx.gw, ctx.method, ctx.w_dtype = gw, method, w.dtype
-        return _spmm_impl(gw, x, method)
+        return spmm_impl(gw, x, method)
 
     @staticmethod
     def backward(ctx, dy):
         (x,) = ctx.saved_tensors
         gw, dy = ctx.gw, dy.contiguous()
-        dx = _spmm_impl(gw.transpose(), dy, ctx.method)
+        dx = spmm_impl(gw.transpose(), dy, ctx.method)
         # forward-CSR order: edge e of row r carries dy[r] . x[indices_e]
         rows = edge_rows(gw.indptr, gw.n_edge)
         dw = edge_dot(dy[rows], x[gw.indices.long()]).to(ctx.w_dtype)

@@ -1,4 +1,4 @@
-"""CSR SpMM kernels, their plain PyTorch versions and their launch counts.
+"""CSR SpMM kernels and their plain PyTorch version.
 
 ``y[r, :] = sum_{e in indptr[r]..indptr[r+1]} w_e * x[indices_e, :]``, with
 ``indptr`` int32 ``[n_rows + 1]``, ``indices`` int32 ``[E]`` (source rows of
@@ -19,9 +19,9 @@ direct call without one builds it from ``indptr`` (a host copy). A schedule
 passed with a CSR of other row or edge counts than it was built for raises
 ``ValueError`` on either route. On a CPU tensor each wrapper runs the plain
 version (``spmm_csr_plain``); on a CUDA tensor it launches its kernels or
-raises. ``LAUNCHES`` counts one per
-wrapper call that launched, and calls of the plain version, so a run can
-show which one it went through.
+raises. ``ops/_build.py:LAUNCHES`` counts one per wrapper call that
+launched, and calls of the plain version, so a run can show which one it
+went through.
 """
 from __future__ import annotations
 
@@ -30,16 +30,10 @@ from typing import Optional
 import torch
 
 from ..graph.core import RowSchedule, build_schedule, edge_rows
-
-LAUNCHES = {"spmm_csr_f32": 0, "spmm_csr_bf16": 0, "spmm_csr_plain": 0}
+from . import _build
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA's data sheet), at 700 W
 F32_FLOPS = 67e12  # f32 outside the tensor cores, the same sheet
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def spmm_bound(g, d: int, bf16: bool) -> tuple:
@@ -71,7 +65,7 @@ def spmm_csr_plain(indptr: torch.Tensor, indices: torch.Tensor,
     ``bf16=True`` rounds ``x`` and ``w`` to bf16 first, as the bf16 kernel
     does; the product of two bf16 values is exact in f32, so the two differ
     only in the order of the sums."""
-    LAUNCHES["spmm_csr_plain"] += 1
+    _build.LAUNCHES["spmm_csr_plain"] += 1
     n_rows = indptr.numel() - 1
     if bf16:
         x = x.to(torch.bfloat16)
@@ -106,7 +100,7 @@ def _check(indptr, indices, weight, x) -> None:
         raise ValueError("sizes outside the kernel's int32 indexing")
 
 
-def _vec_width(d: int, x: torch.Tensor, widths) -> int:
+def vec_width(d: int, x: torch.Tensor, widths) -> int:
     """The widest vector (elements per lane load) that divides ``d`` and
     keeps every row of ``x`` aligned to it."""
     for v in widths:
@@ -121,55 +115,25 @@ def lane_layout(d: int, x: torch.Tensor, widths) -> tuple:
     row has more than 32 vectors, so a warp covers d = 256 f32 in one pass),
     and a row gets the smallest power-of-two group of lanes that covers it,
     at most a warp; narrower rows share a warp."""
-    vec = _vec_width(d, x, widths)
+    vec = vec_width(d, x, widths)
     n_vec = d // vec
     nv = 1 if n_vec <= 32 else 2
     lanes = max(1, -(-n_vec // nv))
     return vec, nv, min(32, 1 << (lanes - 1).bit_length())
 
 
-def _check_schedule(s: RowSchedule, n_rows: int, n_edge: int, device) -> None:
-    """Raises unless ``s`` fits a CSR of ``n_rows`` rows and ``n_edge`` edges
-    on ``device``: a schedule built from another CSR's ``indptr`` would leave
-    this one's hub rows unwritten (the light kernel skips them)."""
-    if s.hub_chunk_ptr.shape[0] != s.n_hub + 1 or s.n_hub > n_rows:
-        raise ValueError(f"schedule of {s.n_hub} hub rows and "
-                         f"{s.hub_chunk_ptr.shape[0]} chunk pointers for a CSR "
-                         f"of {n_rows} rows")
-    if (s.n_rows, s.n_edge) != (n_rows, n_edge):
-        raise ValueError(f"schedule built for a CSR of {s.n_rows} rows and "
-                         f"{s.n_edge} edges, passed with one of {n_rows} rows "
-                         f"and {n_edge} edges")
-    for name in ("hub_rows", "hub_chunk_ptr", "chunk_bounds"):
-        t = getattr(s, name)
-        if t.device != device or t.dtype != torch.int32 or not t.is_contiguous():
-            raise ValueError(f"schedule.{name} must be contiguous int32 on {device}, "
-                             f"got {t.dtype} on {t.device}")
-
-
 def _launch(name: str, indptr, indices, weight, x, widths,
             schedule: Optional[RowSchedule]) -> torch.Tensor:
-    from . import _build
-
-    lib = _build.load()
     n_rows, d = indptr.numel() - 1, x.shape[1]
-    if schedule is None:
-        schedule = build_schedule(indptr.cpu().numpy()).to(x.device)
-    _check_schedule(schedule, n_rows, indices.numel(), x.device)
+    s = schedule if schedule is not None else build_schedule(indptr.cpu().numpy()).to(x.device)
+    s.check(n_rows, indices.numel(), x.device)
     y = torch.empty(n_rows, d, dtype=torch.float32, device=x.device)
-    partial = torch.empty(schedule.n_chunks, d, dtype=torch.float32, device=x.device)
+    partial = torch.empty(s.n_chunks, d, dtype=torch.float32, device=x.device)
     vec, nv, group = lane_layout(d, x, widths)
-    s = schedule
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        LAUNCHES[name] += 1
-        rc = getattr(lib, name)(
-            indptr.data_ptr(), indices.data_ptr(), weight.data_ptr(), x.data_ptr(),
-            y.data_ptr(), n_rows, d, vec, nv, group, s.hub_rows.data_ptr(),
-            s.hub_chunk_ptr.data_ptr(), s.n_hub, s.chunk_bounds.data_ptr(),
-            s.n_chunks, s.threshold, partial.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    _build.launch(name, x.device, indptr.data_ptr(), indices.data_ptr(), weight.data_ptr(),
+                  x.data_ptr(), y.data_ptr(), n_rows, d, vec, nv, group,
+                  s.hub_rows.data_ptr(), s.hub_chunk_ptr.data_ptr(), s.n_hub,
+                  s.chunk_bounds.data_ptr(), s.n_chunks, s.threshold, partial.data_ptr())
     return y
 
 
@@ -178,16 +142,8 @@ def _plain(indptr, indices, weight, x, schedule: Optional[RowSchedule],
     """The CPU route: the plain version, after the same schedule check as
     the CUDA route, so that a schedule of another CSR is refused here too."""
     if schedule is not None:
-        _check_schedule(schedule, indptr.numel() - 1, indices.numel(), x.device)
+        schedule.check(indptr.numel() - 1, indices.numel(), x.device)
     return spmm_csr_plain(indptr, indices, weight, x, bf16=bf16)
-
-
-def _on_cuda(x: torch.Tensor) -> bool:
-    if x.device.type == "cpu":
-        return False
-    if x.device.type == "cuda":
-        return True
-    raise ValueError(f"no SpMM kernel for device {x.device}")
 
 
 def spmm_csr_f32(indptr: torch.Tensor, indices: torch.Tensor,
@@ -195,7 +151,7 @@ def spmm_csr_f32(indptr: torch.Tensor, indices: torch.Tensor,
                  schedule: Optional[RowSchedule] = None) -> torch.Tensor:
     """f32 CSR SpMM: the CUDA kernels on a CUDA tensor, the plain version on
     a CPU one. ``schedule``: the CSR's ``RowSchedule`` on x's device."""
-    if not _on_cuda(x):
+    if not _build.on_cuda(x, "SpMM"):
         return _plain(indptr, indices, weight, x, schedule, bf16=False)
     _check(indptr, indices, weight, x)
     if x.dtype != torch.float32 or weight.dtype != torch.float32:
@@ -209,7 +165,7 @@ def spmm_csr_bf16(indptr: torch.Tensor, indices: torch.Tensor,
                   schedule: Optional[RowSchedule] = None) -> torch.Tensor:
     """bf16-operand CSR SpMM with f32 accumulation and f32 output: the CUDA
     kernels on a CUDA tensor, the plain version on a CPU one."""
-    if not _on_cuda(x):
+    if not _build.on_cuda(x, "SpMM"):
         return _plain(indptr, indices, weight, x, schedule, bf16=True)
     _check(indptr, indices, weight, x)
     if not (x.is_floating_point() and weight.is_floating_point()):

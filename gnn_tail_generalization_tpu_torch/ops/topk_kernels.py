@@ -1,5 +1,4 @@
-"""The single-pass top-K kernel, its plain PyTorch version and its launch
-count.
+"""The single-pass top-K kernel and its plain PyTorch version.
 
 ``(values, indices)`` of the K largest scores of each row of an f32
 ``[n_rows, n_cols]`` matrix, ordered as ``jax.lax.top_k`` orders them:
@@ -17,22 +16,17 @@ score descending, and among exactly equal scores the lower index first.
 
 ``ops/topk_attention.py:top_k_lowest_index`` takes the plain version for a
 CPU tensor and the kernel for a CUDA one, which launches or raises.
-``LAUNCHES`` counts the kernel's launches, and each launch also counts in
-the recorder's ``replace.select_calls`` (``utils/debug.py``).
+``ops/_build.py:LAUNCHES`` counts the kernel's launches, and each launch
+also counts in the recorder's ``replace.select_calls`` (``utils/debug.py``).
 """
 from __future__ import annotations
 
 import torch
 
 from ..utils import debug
+from . import _build
 
-LAUNCHES = {"topk_rows_f32": 0}
 MAX_K = 32  # the kernel is instantiated for 1 <= K <= 32
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def top_k_plain(scores: torch.Tensor, k: int):
@@ -79,23 +73,14 @@ def topk_rows_f32(scores: torch.Tensor, k: int):
     """The kernel on a CUDA tensor: (values [n_rows, k] f32, indices
     [n_rows, k] int64). Raises for any other device and for what
     ``check_rows`` refuses."""
-    if scores.device.type != "cuda":
+    if not _build.on_cuda(scores, "top-K"):
         raise ValueError(f"no top-K kernel for device {scores.device}")
     check_rows(scores, k)
-    from . import _build
-
-    lib = _build.load()
     n_rows, n_cols = scores.shape
     vals = torch.empty(n_rows, k, dtype=torch.float32, device=scores.device)
     idx = torch.empty(n_rows, k, dtype=torch.int64, device=scores.device)
     if n_rows == 0:
         return vals, idx
-    with torch.cuda.device(scores.device):
-        stream = torch.cuda.current_stream(scores.device).cuda_stream
-        LAUNCHES["topk_rows_f32"] += 1
-        debug.count("replace.select_calls")
-        rc = lib.topk_rows_f32(scores.data_ptr(), n_rows, n_cols, n_cols, k,
-                               vals.data_ptr(), idx.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"topk_rows_f32 launch failed: CUDA error {rc}")
+    _build.launch("topk_rows_f32", scores.device, scores.data_ptr(), n_rows, n_cols, n_cols,
+                  k, vals.data_ptr(), idx.data_ptr(), counter="replace.select_calls")
     return vals, idx

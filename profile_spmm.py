@@ -9,7 +9,7 @@ and the slice's own graph; with ``--citation2`` also phase 7's message
 graph), forward and transposed, f32 and bf16, at d = 256 (the bench graph
 also at d = 40) it prints:
 
-- ``ms``: the port's wrapper through ``ops/spmm.py:_spmm_impl`` (the bf16
+- ``ms``: the port's wrapper through ``ops/spmm.py:spmm_impl`` (the bf16
   time includes its rounding of x and w), median of CUDA-event timed calls;
 - ``base_ms``: with ``--baseline``, the same function through a kernel
   library built from another source with the one-kernel C interface
@@ -107,12 +107,12 @@ def baseline_fn(lib, g, x, bf16: bool):
 
 def time_case(tag, g, x, base, card_name, reps=20) -> dict:
     from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
-    from gnn_tail_generalization_tpu_torch.ops.spmm import _spmm_impl
+    from gnn_tail_generalization_tpu_torch.ops.spmm import spmm_impl
 
     rows = {}
     for name, method in METHODS.items():
         bf16 = name == "bf16"
-        fn = lambda: _spmm_impl(g, x, method)  # noqa: E731
+        fn = lambda: spmm_impl(g, x, method)  # noqa: E731
         y = fn()
         y_ref = K.spmm_csr_plain(g.indptr, g.indices, g.weight, x, bf16=bf16)
         rel = chip_smoke.rel_err(y, y_ref)
@@ -175,19 +175,19 @@ def with_library(g, lib):
 def sweep(tag, g, x, settings, card_name, reps=20) -> dict:
     """ms of the port's kernels on ``g`` under each (label, context) setting."""
     from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
-    from gnn_tail_generalization_tpu_torch.ops.spmm import _spmm_impl
+    from gnn_tail_generalization_tpu_torch.ops.spmm import spmm_impl
 
     out = {}
     for label, setting in settings:
         row = {}
         with setting(g) as gg:
             for name, method in METHODS.items():
-                y = _spmm_impl(gg, x, method)
+                y = spmm_impl(gg, x, method)
                 ref = K.spmm_csr_plain(gg.indptr, gg.indices, gg.weight, x,
                                        bf16=name == "bf16")
                 assert chip_smoke.rel_err(y, ref) <= chip_smoke.REL_TOL, (tag, label)
                 del y, ref
-                row[name] = chip_smoke.median_ms(lambda: _spmm_impl(gg, x, method), reps)
+                row[name] = chip_smoke.median_ms(lambda: spmm_impl(gg, x, method), reps)
         out[label] = row
         chip_smoke.log(f"  {tag:24s} {label:18s} f32 {row['f32']:.4f} ms, bf16 "
                        f"{row['bf16']:.4f} ms [{card_name}]")

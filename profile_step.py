@@ -673,18 +673,18 @@ def profile_cell(name: str, build, out_dir: str) -> dict:
     profiles a second run and times a third; a host-bound cell's window
     runs a fourth time under ``host_profile``. The summary of its trace and
     the fields of the module docstring."""
-    from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
+    from gnn_tail_generalization_tpu_torch.ops import _build
 
     w = build()
     w.run()
-    K.reset_launch_counts()
+    _build.reset_launch_counts()
     calls = []
     with recorded_spmm_calls(calls), torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
         step_ms, out = w.run()
         torch.cuda.synchronize()
-    launches = dict(K.LAUNCHES)
+    launches = _build.launch_counts("spmm_csr")
     if not finite(out):
         raise RuntimeError(f"cell {name!r}: non-finite loss or output {out}")
     if len(calls) != sum(launches.values()):

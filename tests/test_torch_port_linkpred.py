@@ -675,12 +675,12 @@ def test_heuristic_short_circuit_equals_jax(encoder):
 
 
 TRAIN_CASES = [
-    dict(device_epoch=True, neg_sampler="global"),
-    dict(device_epoch=True, neg_sampler="local", eval_metric="hits"),
-    dict(device_epoch=True, neg_sampler="global_perm", eval_metric="mrr"),
-    dict(device_epoch=False, neg_sampler="global"),
-    dict(device_epoch=False, neg_sampler="local", max_steps_per_epoch=2),
-    dict(device_epoch=False, neg_sampler="global_perm", dropout=0.5),
+    dict(neg_sampler="global"),
+    dict(neg_sampler="local", eval_metric="hits"),
+    dict(neg_sampler="global_perm", eval_metric="mrr"),
+    dict(neg_sampler="local", max_steps_per_epoch=2),
+    dict(neg_sampler="global_perm", dropout=0.5),
+    dict(neg_sampler="global", optimizer="AdamW"),
 ]
 
 
@@ -690,7 +690,6 @@ def test_train_linkpred_runs_and_learns(kw):
     """Whole runs on the CPU: finite statistics and per-epoch times, and a
     train loss that falls (the random streams are the port's own)."""
     kw = dict(kw)
-    device_epoch = kw.pop("device_epoch")
     cap = kw.pop("max_steps_per_epoch", None)
     n = 300
     msg = msg_graph(n)
@@ -699,8 +698,8 @@ def test_train_linkpred_runs_and_learns(kw):
                               gnn_hidden_channels=H, mlp_hidden_channels=H,
                               **kw)
     out = tlpm.train_linkpred(cfg, None, msg, n, epochs=3, runs=2,
-                              split_edge=split_edge, device_epoch=device_epoch,
-                              max_steps_per_epoch=cap, device="cpu")
+                              split_edge=split_edge, max_steps_per_epoch=cap,
+                              device="cpu")
     assert set(out["stats"]) == {"valid_mean", "valid_std", "test_mean",
                                  "test_std"}
     assert all(np.isfinite(v) for v in out["stats"].values()), out["stats"]

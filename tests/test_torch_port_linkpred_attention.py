@@ -28,6 +28,7 @@ from gnn_tail_generalization_tpu_torch.data.synthetic import fast_powerlaw_graph
 from gnn_tail_generalization_tpu_torch.graph import core as tcore
 from gnn_tail_generalization_tpu_torch.linkpred import encoders as tenc
 from gnn_tail_generalization_tpu_torch.linkpred import model as tlpm
+from gnn_tail_generalization_tpu_torch.ops import _build
 from gnn_tail_generalization_tpu_torch.ops import edge_attention as ea
 from gnn_tail_generalization_tpu_torch.utils import debug
 
@@ -84,9 +85,10 @@ def test_plain_op_matches_the_blockwise_reference(n):
     assert n < 1000 or len(rg["blocks"]) > 3
     q, k, v = qkv(n)
     r = torch.randn(n, D, generator=torch.Generator().manual_seed(2))
-    ea.reset_launch_counts()
+    _build.reset_launch_counts()
     out, grads = op_and_grads(lambda *t: ea.edge_attention(g, *t), q, k, v, r)
-    assert ea.LAUNCHES == {"edge_attn_rows_f32": 0, "edge_attn_rows_plain": 2}
+    assert _build.launch_counts("edge_attn_rows") == {"edge_attn_rows_f32": 0,
+                                                      "edge_attn_rows_plain": 2}
     want, want_grads = op_and_grads(lambda *t: ref.attention(*t, rg), q, k, v, r)
     close(out, want, 1e-5, 1e-6)
     for got, w in zip(grads, want_grads):
@@ -245,9 +247,10 @@ def test_kernels_match_the_plain_version_on_the_card(card, d):
     assert int(deg.max()) > 10 * tcore.HUB_THRESHOLD and int((deg == 0).sum()) > 0
     q, k, v = qkv(n, d, seed=12, scale=2.0, device=card)
     r = torch.randn(n, d, generator=torch.Generator().manual_seed(13)).to(card)
-    ea.reset_launch_counts()
+    _build.reset_launch_counts()
     out, grads = op_and_grads(lambda *t: ea.edge_attention(g, *t), q, k, v, r)
-    assert ea.LAUNCHES == {"edge_attn_rows_f32": 2, "edge_attn_rows_plain": 0}
+    assert _build.launch_counts("edge_attn_rows") == {"edge_attn_rows_f32": 2,
+                                                      "edge_attn_rows_plain": 0}
     out2, grads2 = op_and_grads(lambda *t: ea.edge_attention(g, *t), q, k, v, r)
     assert torch.equal(out, out2) and all(torch.equal(a, b) for a, b in zip(grads, grads2))
     a1 = ea.edge_attn_rows("softmax", g.indptr, g.indices, q.detach(), k.detach(), d ** -0.5,

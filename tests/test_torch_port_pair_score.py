@@ -28,6 +28,7 @@ from gnn_tail_generalization_tpu_torch.data.synthetic import fast_powerlaw_graph
 from gnn_tail_generalization_tpu_torch.graph import core as tcore
 from gnn_tail_generalization_tpu_torch.linkpred import model as tlpm
 from gnn_tail_generalization_tpu_torch.linkpred import predictors as tpred
+from gnn_tail_generalization_tpu_torch.ops import _build
 from gnn_tail_generalization_tpu_torch.ops import pair_score as ps
 from gnn_tail_generalization_tpu_torch.parallel.distgraph import ShardedGraph
 from gnn_tail_generalization_tpu_torch.utils import debug
@@ -179,13 +180,13 @@ def test_score_calls_counts_only_launches(tmp_path):
     profile, an evaluation on the CPU leaves ``score.kernel_calls`` out."""
     cfg, model, const, _, msg = model_and_table(eval_metric="mrr")
     split = mrr_split(msg, 300)
-    ps.reset_launch_counts()
+    _build.reset_launch_counts()
     with debug.profile_trace(str(tmp_path)):
         tlpm.evaluate(cfg, model, const, split)
         rec = debug.recorded()
     assert "score.kernel_calls" not in rec["counters"]
     assert rec["spans"]["gnn.link.score"]["calls"] == 4
-    assert ps.LAUNCHES == {"pair_dot_f32": 0}
+    assert _build.launch_counts("pair_dot") == {"pair_dot_f32": 0}
 
 
 def test_forward_hook_sees_one_output_a_split():
@@ -256,9 +257,9 @@ def test_kernel_matches_plain_and_float64_on_the_card(card, d):
     h = h_host.to(card)
     for name, p_host in card_cases(n):
         p = p_host.to(card)
-        ps.reset_launch_counts()
+        _build.reset_launch_counts()
         got = ps.pair_dot(h, p)
-        assert ps.LAUNCHES == {"pair_dot_f32": int(p.shape[0] > 0)}, name
+        assert _build.launch_counts("pair_dot") == {"pair_dot_f32": int(p.shape[0] > 0)}, name
         assert torch.equal(got, ps.pair_dot(h, p)), f"{name}: two launches differ"
         assert got.shape == (p.shape[0],) and got.dtype == torch.float32
         if not p.shape[0]:
@@ -284,10 +285,10 @@ def test_evaluate_on_the_card_equals_the_cpus(card, tmp_path):
     const_c = tlpm.link_const(cfg, tlpm.link_graph(cfg, msg, n).to(card),
                               const["x"].to(card))
     split_c = {s: {k: v.to(card) for k, v in e.items()} for s, e in split.items()}
-    ps.reset_launch_counts()
+    _build.reset_launch_counts()
     with debug.profile_trace(str(tmp_path)):
         got = tlpm.evaluate(cfg, model_c, const_c, split_c)["MRR"]
         rec = debug.recorded()
     assert rec["counters"]["score.kernel_calls"] == 4
-    assert ps.LAUNCHES == {"pair_dot_f32": 4}
+    assert _build.launch_counts("pair_dot") == {"pair_dot_f32": 4}
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)

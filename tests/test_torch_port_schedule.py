@@ -203,10 +203,10 @@ def test_wrapper_checks_the_schedule(rng):
     _, _, g = hub_graph(rng)
     other = tcore.build_schedule(np.array([0, 100, 200]))
     with pytest.raises(ValueError, match="schedule of 2 hub rows"):
-        K._check_schedule(other, 1, 200, g.indptr.device)
+        other.check(1, 200, g.indptr.device)
     with pytest.raises(ValueError, match="contiguous int32"):
-        K._check_schedule(g.schedule.to("meta"), g.n_node, g.n_edge, g.indptr.device)
-    K._check_schedule(g.schedule, g.n_node, g.n_edge, g.indptr.device)
+        g.schedule.to("meta").check(g.n_node, g.n_edge, g.indptr.device)
+    g.schedule.check(g.n_node, g.n_edge, g.indptr.device)
     # a CPU tensor runs the plain version whatever the schedule
     x = torch.from_numpy(rng.normal(size=(700, 8)).astype(np.float32))
     torch.testing.assert_close(
@@ -230,7 +230,7 @@ def test_wrapper_refuses_the_schedule_of_another_csr(rng, wrapper):
     with pytest.raises(ValueError, match="schedule built for a CSR of 700 rows"):
         fn(g.indptr, g.indices, g.weight, x, sub.schedule)
     with pytest.raises(ValueError, match="schedule built for a CSR"):
-        K._check_schedule(g.schedule, g.n_node, sub.n_edge, g.indptr.device)
+        g.schedule.check(g.n_node, sub.n_edge, g.indptr.device)
     torch.testing.assert_close(fn(sub.indptr, sub.indices, sub.weight, x, sub.schedule),
                                fn(sub.indptr, sub.indices, sub.weight, x),
                                rtol=0, atol=0)

@@ -52,11 +52,11 @@ def test_plain_matches_pallas_interpret(rng, n, e, d, hub, bf16):
                            compute_dtype=jnp.bfloat16 if bf16 else jnp.float32)
     tg = tcore.build_graph(ei, n, w, with_dense=False)
     wrapper = K.spmm_csr_bf16 if bf16 else K.spmm_csr_f32
-    K.reset_launch_counts()
+    _build.reset_launch_counts()
     y_t = wrapper(tg.indptr, tg.indices, tg.weight, torch.from_numpy(x))
     # on the CPU the wrapper ran the plain version, never a kernel
-    assert K.LAUNCHES == {"spmm_csr_f32": 0, "spmm_csr_bf16": 0,
-                          "spmm_csr_plain": 1}
+    assert _build.launch_counts("spmm_csr") == {"spmm_csr_f32": 0, "spmm_csr_bf16": 0,
+                                                "spmm_csr_plain": 1}
     assert y_t.dtype == torch.float32 and y_t.shape == (n, d)
     np.testing.assert_allclose(y_t.numpy(), np.asarray(y_j), **TOL)
 
@@ -133,7 +133,7 @@ def test_wrapper_checks():
     with pytest.raises(ValueError, match="no SpMM kernel"):
         K.spmm_csr_f32(ip.to("meta"), ix.to("meta"), w.to("meta"), x.to("meta"))
     with pytest.raises(ValueError, match="unknown spmm method"):
-        tspmm._spmm_impl(tcore.build_graph(np.array([[0], [1]]), 2), x, "nope")
+        tspmm.spmm_impl(tcore.build_graph(np.array([[0], [1]]), 2), x, "nope")
 
 
 @pytest.mark.parametrize("method", ["auto", "gather", "pallas", "pallas_bf16"])
@@ -161,10 +161,10 @@ F32, BF16 = (4, 2, 1), (8, 4, 2, 1)
     (12, 2, BF16, (4, 1, 4))])
 def test_vector_width(d, elem, widths, expect):
     x = torch.empty(3, d, dtype=torch.float32 if elem == 4 else torch.bfloat16)
-    assert K._vec_width(d, x, widths) == expect[0]
+    assert K.vec_width(d, x, widths) == expect[0]
     assert K.lane_layout(d, x, widths) == expect
     # a view that starts off the 16-byte grid takes narrower loads
-    assert K._vec_width(d, x.view(-1)[1:].view(-1)[: d], widths) == 1
+    assert K.vec_width(d, x.view(-1)[1:].view(-1)[: d], widths) == 1
 
 
 def test_build_needs_nvcc_and_hashes_source(tmp_path, monkeypatch):
@@ -192,6 +192,73 @@ def test_build_needs_nvcc_and_hashes_source(tmp_path, monkeypatch):
     (csrc / "notes.txt").write_text("edited, still not a source\n")
     (csrc / "b.cuh").write_text("// a header\n")
     assert _build.library_path() == p2
+
+
+def _wrapper_calls():
+    """(entry point, the recorder counter its launch counts in, a call of its
+    wrapper on small CPU operands)."""
+    from gnn_tail_generalization_tpu_torch.ops import edge_attention as ea
+    from gnn_tail_generalization_tpu_torch.ops import pair_score as ps
+    from gnn_tail_generalization_tpu_torch.ops import topk_kernels as tk
+
+    rng = np.random.default_rng(0)
+    ei, w = random_edges(rng, 40, 100, hub=True)
+    g = tcore.build_graph(ei, 40, w, with_dense=False)
+    x = torch.from_numpy(rng.normal(size=(40, 16)).astype(np.float32))
+    csr = (g.indptr, g.indices, g.weight, x)
+    alpha = torch.ones(g.n_edge)
+    pairs = torch.from_numpy(rng.integers(0, 40, (30, 2)))
+    return {
+        "spmm_csr_f32": (None, lambda: K.spmm_csr_f32(*csr, schedule=g.schedule)),
+        "spmm_csr_bf16": (None, lambda: K.spmm_csr_bf16(*csr)),
+        "topk_rows_f32": ("replace.select_calls", lambda: tk.topk_rows_f32(x, 3)),
+        "edge_attn_rows_f32": (None, lambda: ea.edge_attn_rows(
+            "grad", g.indptr, g.indices, x, x, 0.25, alpha=alpha, schedule=g.schedule)),
+        "pair_dot_f32": ("score.kernel_calls", lambda: ps.pair_dot(x, pairs)),
+    }
+
+
+@pytest.mark.parametrize("name", ["spmm_csr_f32", "spmm_csr_bf16", "topk_rows_f32",
+                                  "edge_attn_rows_f32", "pair_dot_f32"])
+def test_each_wrapper_launches_an_entry_point_of_the_one_table(monkeypatch, name):
+    """Each wrapper's CUDA route, taken here by a device rule that says
+    CUDA, goes through ``_build.launch`` with its own entry point, one of
+    ``_build``'s table, and as many arguments as the table types (the
+    stream, which ``launch`` adds, aside)."""
+    launched = []
+    monkeypatch.setattr(_build, "on_cuda", lambda t, kernel: True)
+    monkeypatch.setattr(_build, "launch", lambda n, device, *args, counter=None:
+                        launched.append((n, device, len(args), counter)))
+    counter, call = _wrapper_calls()[name]
+    call()
+    assert set(_build.ENTRY_POINTS) == {"spmm_csr_f32", "spmm_csr_bf16", "topk_rows_f32",
+                                        "edge_attn_rows_f32", "pair_dot_f32"}
+    assert launched == [(name, torch.device("cpu"), len(_build.ENTRY_POINTS[name]) - 1,
+                         counter)]
+
+
+def test_the_one_count_holds_every_kernel_and_plain_version():
+    """One count keyed by every entry point and the counted plain versions;
+    a plain call counts under its own name, and one ``reset_launch_counts``
+    zeroes every count."""
+    from gnn_tail_generalization_tpu_torch.ops import edge_attention as ea
+
+    assert list(_build.LAUNCHES) == [*_build.ENTRY_POINTS, "spmm_csr_plain",
+                                     "edge_attn_rows_plain"]
+    _build.reset_launch_counts()
+    ei, w = random_edges(np.random.default_rng(1), 30, 90)
+    g = tcore.build_graph(ei, 30, w, with_dense=False)
+    x = torch.randn(30, 8)
+    K.spmm_csr_plain(g.indptr, g.indices, g.weight, x)
+    ea.edge_attn_rows_plain("softmax", g.indptr, g.indices, x, x, 0.5)
+    assert _build.launch_counts() == {**dict.fromkeys(_build.LAUNCHES, 0),
+                                      "spmm_csr_plain": 1, "edge_attn_rows_plain": 1}
+    assert _build.launch_counts("spmm_csr") == {"spmm_csr_f32": 0, "spmm_csr_bf16": 0,
+                                                "spmm_csr_plain": 1}
+    for k in _build.LAUNCHES:
+        _build.LAUNCHES[k] = 3
+    _build.reset_launch_counts()
+    assert set(_build.launch_counts().values()) == {0}
 
 
 def test_graph_to_moves_every_tensor(rng):

@@ -37,7 +37,7 @@ from gnn_tail_generalization_tpu_torch.data import datasets as tds
 from gnn_tail_generalization_tpu_torch.models import semlp
 from gnn_tail_generalization_tpu_torch.models.teacher import TeacherGNN
 from gnn_tail_generalization_tpu_torch.nn.mlp import MLP, BlockResMLP
-from gnn_tail_generalization_tpu_torch.ops import topk_kernels
+from gnn_tail_generalization_tpu_torch.ops import _build, topk_kernels
 from gnn_tail_generalization_tpu_torch.ops.topk_attention import (
     latent_neighbor_replace, top_k_lowest_index)
 from gnn_tail_generalization_tpu_torch.train import loops as tloops
@@ -256,9 +256,9 @@ def test_topk_kernel_route_takes_only_cuda_tensors():
         top_k_lowest_index(meta, 2)
     with pytest.raises(ValueError, match="no top-K kernel for device cpu"):
         topk_kernels.topk_rows_f32(torch.zeros(4, 40), 2)
-    before = dict(topk_kernels.LAUNCHES)
+    before = _build.launch_counts("topk")
     top_k_lowest_index(torch.randn(4, 40), 2)
-    assert topk_kernels.LAUNCHES == before
+    assert _build.launch_counts("topk") == before
 
 
 # ---------------------------------------------------------------------------

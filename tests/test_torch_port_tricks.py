@@ -36,6 +36,7 @@ from gnn_tail_generalization_tpu_torch.models.teacher import TeacherGNN
 from gnn_tail_generalization_tpu_torch.nn import graph_dropout as tgd
 from gnn_tail_generalization_tpu_torch.nn import norms as tnorms
 from gnn_tail_generalization_tpu_torch.nn.residual import DenseConnection
+from gnn_tail_generalization_tpu_torch.ops import _build
 from gnn_tail_generalization_tpu_torch.ops import spmm as tspmm
 from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
 from gnn_tail_generalization_tpu_torch.propagation import correlation as tcorr
@@ -449,12 +450,12 @@ def test_planless_graphs_compute_in_f32_under_pallas_bf16(rng):
     f32, bf16 = K.spmm_csr_f32(*args), K.spmm_csr_bf16(*args)
     assert not torch.allclose(f32, bf16, rtol=1e-5, atol=1e-6)
     planless = dataclasses.replace(tg, has_plans=False)  # built by hand
-    K.reset_launch_counts()
+    _build.reset_launch_counts()
     torch.testing.assert_close(tspmm.spmm(planless, x, "pallas_bf16"), f32,
                                rtol=0, atol=0)
     torch.testing.assert_close(tspmm.spmm(tg, x, "pallas_bf16"), bf16,
                                rtol=0, atol=0)
-    assert K.LAUNCHES["spmm_csr_plain"] == 2
+    assert _build.LAUNCHES["spmm_csr_plain"] == 2
     # a masked graph of a graph with plans, and a propagation adjacency,
     # are plan-less; prepare's graph and its loss-masked view keep plans
     ones = torch.ones(tg.n_edge)

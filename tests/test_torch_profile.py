@@ -17,6 +17,7 @@ import pytest
 import torch
 
 import profile_step as P
+from gnn_tail_generalization_tpu_torch.ops import _build
 from gnn_tail_generalization_tpu_torch.ops import spmm_kernels as K
 
 SMALL = dict(n_node=1500, n_feat=32, n_hidden=32, n_class=5, n_edge=6000)
@@ -186,7 +187,7 @@ def test_summarize_a_hand_written_trace(tmp_path):
 def run_recorded(window) -> tuple:
     """(step ms, output, recorded SpMM calls) of one run of ``window``; the
     launch counts are reset before it."""
-    K.reset_launch_counts()
+    _build.reset_launch_counts()
     calls = []
     with P.recorded_spmm_calls(calls):
         step_ms, out = window.run()
@@ -201,7 +202,8 @@ def test_each_cell_runs_one_step_on_the_cpu(name):
     window = P.cells(epochs=1)[name](device="cpu", **CELL_SMALL.get(name, NODE_SMALL))
     step_ms, out, calls = run_recorded(window)
     assert window.steps == 1 and np.isfinite(step_ms) and P.finite(out)
-    assert len(calls) == sum(K.LAUNCHES.values()) == K.LAUNCHES["spmm_csr_plain"]
+    spmm = _build.launch_counts("spmm_csr")
+    assert len(calls) == sum(spmm.values()) == spmm["spmm_csr_plain"]
 
 
 @pytest.mark.parametrize("name", ["GroupNorm", "bench"])
@@ -214,7 +216,7 @@ def test_the_recorder_sees_every_spmm_of_a_window(name):
             else {k: PLANNED[k] for k in NODE_SMALL})
     _, _, calls = run_recorded(P.cells(epochs=1)[name](device="cpu", **size))
     layers, per_layer = 2, 2 if name == "bench" else 3
-    assert len(calls) == K.LAUNCHES["spmm_csr_plain"] == per_layer * layers
+    assert len(calls) == _build.LAUNCHES["spmm_csr_plain"] == per_layer * layers
     want = sum(K.spmm_bound(types.SimpleNamespace(
         indices=ix, n_node=ip.numel() - 1, n_edge=ix.numel()), d, bf16)[0]
         for ip, ix, d, bf16 in calls)

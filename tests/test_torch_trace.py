@@ -28,7 +28,7 @@ from gnn_tail_generalization_tpu_torch.data.synthetic import fast_powerlaw_graph
 from gnn_tail_generalization_tpu_torch.linkpred import model as lpm
 from gnn_tail_generalization_tpu_torch.linkpred import sampling
 from gnn_tail_generalization_tpu_torch.ops import spmm as spmm_mod
-from gnn_tail_generalization_tpu_torch.ops import topk_attention, topk_kernels
+from gnn_tail_generalization_tpu_torch.ops import _build, topk_attention
 from gnn_tail_generalization_tpu_torch.train import loops
 from gnn_tail_generalization_tpu_torch.utils import debug
 
@@ -67,15 +67,15 @@ def calls(rec):
 
 
 def spmm_impl_calls(monkeypatch):
-    """A list that grows by one at every ``ops/spmm.py:_spmm_impl`` call."""
+    """A list that grows by one at every ``ops/spmm.py:spmm_impl`` call."""
     seen = []
-    impl = spmm_mod._spmm_impl
+    impl = spmm_mod.spmm_impl
 
     def counted(*a, **kw):
         seen.append(1)
         return impl(*a, **kw)
 
-    monkeypatch.setattr(spmm_mod, "_spmm_impl", counted)
+    monkeypatch.setattr(spmm_mod, "spmm_impl", counted)
     return seen
 
 
@@ -267,12 +267,12 @@ def test_replacement_counts_a_read_for_each_chunk_and_each_tie():
 def test_select_calls_count_only_kernel_launches():
     """``replace.select_calls`` counts launches of the top-K kernel, so the
     CPU route, which runs the plain version, counts none."""
-    before = dict(topk_kernels.LAUNCHES)
+    before = _build.launch_counts("topk")
     _, rec = profiled(lambda: topk_attention.latent_neighbor_replace(
         torch.randn(20, 8), torch.randn(50, 8), 3, row_chunk=8))
     assert calls(rec)["gnn.replace"] == 1
     assert rec["counters"].get("replace.select_calls", 0) == 0
-    assert topk_kernels.LAUNCHES == before
+    assert _build.launch_counts("topk") == before
 
 
 def test_link_slice_spans_and_counters(monkeypatch):
@@ -419,19 +419,19 @@ def test_host_syncs_count_every_synchronisation_torch_reports(card):
 @pytest.mark.card
 def test_replacement_on_the_card_launches_the_kernel_and_reads_nothing(card):
     """On the card each row chunk of the replacement is one launch of the
-    top-K kernel (``LAUNCHES`` and ``replace.select_calls``), and the call
+    top-K kernel (``_build.LAUNCHES`` and ``replace.select_calls``), and the call
     makes no synchronisation: none counted, none reported by torch."""
     se = torch.randn(5000, 64, device=card)
     q = torch.randn(20000, 64, device=card)
     topk_attention.latent_neighbor_replace(q, se, 2)  # builds the kernels
     torch.cuda.synchronize()
-    before = topk_kernels.LAUNCHES["topk_rows_f32"]
+    before = _build.LAUNCHES["topk_rows_f32"]
     debug.reset()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]):
         _, where = torch_syncs(lambda: topk_attention.latent_neighbor_replace(q, se, 2))
     rec = debug.recorded()
     chunks = 3  # 20,000 rows, 8,192 a chunk
-    assert topk_kernels.LAUNCHES["topk_rows_f32"] - before == chunks
+    assert _build.LAUNCHES["topk_rows_f32"] - before == chunks
     assert rec["counters"].get("replace.select_calls") == chunks
     assert rec["counters"].get("host_syncs", 0) == 0 and sum(where.values()) == 0, where
